@@ -1,0 +1,85 @@
+"""Dense BEV backbone (counterpart of
+``fv2p_tpu/models/backbones_2d/base_bev_backbone.py``, ``BaseBEVBackbone``).
+
+Each level: a k3 conv (stride s, padding 1) + BN + ReLU, then LAYER_NUMS
+more k3 convs; each level is upsampled by a transposed conv (kernel ==
+stride) + BN + ReLU and the ups are concatenated into
+``spatial_features_2d``. The batch dict keeps channels-last (B, H, W, C)
+maps; the convolutions run on NCHW internally. Module names follow the flax
+auto-names (``Conv_0``, ``BatchNorm_0``, ...) so the weight loader maps them
+one to one.
+"""
+import torch
+from torch import nn
+
+from ..layers import BatchNorm, Conv2d, ConvTranspose2d
+
+
+class _Block(nn.Module):
+    def __init__(self, cin, num_filters, layer_num, stride, compute_dtype=None):
+        super().__init__()
+        self.n = layer_num + 1
+        for j in range(self.n):
+            setattr(self, f'Conv_{j}', Conv2d(
+                cin if j == 0 else num_filters, num_filters, 3,
+                stride=stride if j == 0 else 1, padding=1, bias=False,
+                compute_dtype=compute_dtype))
+            setattr(self, f'BatchNorm_{j}', BatchNorm(num_filters, axis=1))
+
+    def forward(self, x):
+        for j in range(self.n):
+            x = getattr(self, f'Conv_{j}')(x)
+            x = torch.relu(getattr(self, f'BatchNorm_{j}')(x))
+        return x
+
+
+class _Deblock(nn.Module):
+    def __init__(self, cin, num_upsample_filters, upsample_stride,
+                 compute_dtype=None):
+        super().__init__()
+        if upsample_stride < 1:
+            raise NotImplementedError('downsampling deblocks (stride < 1)')
+        self.ConvTranspose_0 = ConvTranspose2d(
+            cin, num_upsample_filters, int(upsample_stride), bias=False,
+            compute_dtype=compute_dtype)
+        self.BatchNorm_0 = BatchNorm(num_upsample_filters, axis=1)
+
+    def forward(self, x):
+        return torch.relu(self.BatchNorm_0(self.ConvTranspose_0(x)))
+
+
+class BaseBEVBackbone(nn.Module):
+    def __init__(self, model_cfg, input_channels, compute_dtype=None):
+        super().__init__()
+        if model_cfg.get('USE_DCN', False):
+            raise NotImplementedError(
+                'DCN BEV blocks (ROADMAP: MGAF-3DSSD inference)')
+        layer_nums = model_cfg.get('LAYER_NUMS', [])
+        layer_strides = model_cfg.get('LAYER_STRIDES', [])
+        num_filters = model_cfg.get('NUM_FILTERS', [])
+        upsample_strides = model_cfg.get('UPSAMPLE_STRIDES', [])
+        num_up_filters = model_cfg.get('NUM_UPSAMPLE_FILTERS', [])
+        if len(upsample_strides) != len(layer_nums):
+            raise NotImplementedError('one upsampling deblock per level')
+        self.n_levels = len(layer_nums)
+        cin = input_channels
+        for i in range(self.n_levels):
+            setattr(self, f'block{i}', _Block(cin, num_filters[i], layer_nums[i],
+                                              layer_strides[i], compute_dtype))
+            setattr(self, f'deblock{i}', _Deblock(
+                num_filters[i], num_up_filters[i], upsample_strides[i],
+                compute_dtype))
+            cin = num_filters[i]
+
+    def forward(self, batch_dict):
+        x_in = batch_dict['spatial_features']               # (B, H, W, C)
+        x = x_in.permute(0, 3, 1, 2)
+        ups = []
+        for i in range(self.n_levels):
+            x = getattr(self, f'block{i}')(x)
+            stride = x_in.shape[1] // x.shape[2]
+            batch_dict[f'spatial_features_{stride}x'] = x.permute(0, 2, 3, 1)
+            ups.append(getattr(self, f'deblock{i}')(x))
+        x = torch.cat(ups, dim=1)
+        batch_dict['spatial_features_2d'] = x.permute(0, 2, 3, 1)
+        return batch_dict

@@ -1,0 +1,136 @@
+"""Hand-written Hopper kernels: build, bind and count launches.
+
+Each kernel's source is ``ops/csrc/<name>.cu`` with a plain C interface.
+At first use it is compiled by ``nvcc`` for ``sm_90a`` into a shared library
+under ``build/kernels/`` at the repository root (named by a hash of source
+and flags, so an edited source rebuilds) and loaded with ``ctypes``.
+
+Every kernel module here pairs the launch with a plain PyTorch version of
+the same function: a CPU tensor takes the plain version, a CUDA tensor
+launches the kernel or raises. ``launch_counts`` holds one integer per
+kernel, bumped only where the kernel is launched.
+"""
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+KERNELS = ('rotated_iou', 'fps', 'three_nn', 'sa_group')
+
+CSRC = Path(__file__).resolve().parent.parent / 'csrc'
+BUILD_DIR = Path(__file__).resolve().parents[3] / 'build' / 'kernels'
+# --fmad=false: distances and clip arithmetic round like the plain PyTorch
+# versions (separate multiply and add); kernels that want fused
+# multiply-adds ask for them with fmaf().
+NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
+              '--fmad=false', '-Xptxas=-v', '-shared', '-Xcompiler', '-fPIC')
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# C entry point of each kernel and its argument types (pointers, ints, the
+# stream last); every entry point returns cudaGetLastError() as an int.
+SIGNATURES = {
+    'rotated_iou': ('fv2p_overlap_matrix', (_P, _P, _P, _I, _I, _P)),
+    'fps': ('fv2p_fps', (_P, _P, _P, _P, _P, _I, _I, _I, _P)),
+    'three_nn': ('fv2p_three_nn', (_P, _P, _P, _P, _P, _I, _I, _I, _P)),
+    'sa_group': ('fv2p_sa_group', (_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                   _I, _I, _I, _F, _F, _I, _I, _P)),
+}
+
+launch_counts = {name: 0 for name in KERNELS}
+_libs = {}
+
+
+def reset_launch_counts():
+    for name in launch_counts:
+        launch_counts[name] = 0
+
+
+def _nvcc():
+    path = shutil.which('nvcc') or '/usr/local/cuda/bin/nvcc'
+    if not os.path.exists(path):
+        raise RuntimeError('nvcc not found: the CUDA kernels are built with '
+                           'the CUDA toolkit')
+    return path
+
+
+def library_path(name):
+    src = (CSRC / f'{name}.cu').read_bytes()
+    tag = hashlib.sha1(src + ' '.join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    return BUILD_DIR / f'lib{name}-{tag}.so'
+
+
+def build(names=KERNELS):
+    """Compile the named kernels that are not built yet, one nvcc process
+    per source, all started together. Returns {name: (seconds, ptxas log)}
+    for the ones compiled now; raises with the compiler output on failure."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    t0 = time.perf_counter()
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            continue
+        tmp = out.with_name(out.name + f'.{os.getpid()}.tmp')
+        cmd = [_nvcc(), *NVCC_FLAGS, '-o', str(tmp), str(CSRC / f'{name}.cu')]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, out)
+    done = {}
+    errors = []
+    for name, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f'nvcc failed for {name}.cu:\n{log}')
+            continue
+        os.replace(tmp, out)
+        done[name] = (time.perf_counter() - t0, log)
+    if errors:
+        raise RuntimeError('\n'.join(errors))
+    return done
+
+
+def library(name):
+    """The loaded ctypes library of one kernel, built at first use."""
+    lib = _libs.get(name)
+    if lib is None:
+        build([name])
+        lib = ctypes.CDLL(str(library_path(name)))
+        lib.fv2p_error_string.argtypes = [ctypes.c_int]
+        lib.fv2p_error_string.restype = ctypes.c_char_p
+        fn_name, argtypes = SIGNATURES[name]
+        fn = getattr(lib, fn_name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        _libs[name] = lib
+    return lib
+
+
+def check_launch(name, lib, code):
+    """Raise if the C entry point reported a CUDA error."""
+    if code != 0:
+        msg = lib.fv2p_error_string(code).decode()
+        raise RuntimeError(f'{name} kernel launch failed: {msg} ({code})')
+
+
+def stream_handle(device):
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def require(cond, msg):
+    if not cond:
+        raise ValueError(msg)
+
+
+def check_tensor(t, name, dtype, shape=None):
+    """Validate what a kernel takes: CUDA device, dtype, contiguity, shape."""
+    require(t.is_cuda, f'{name} must be a CUDA tensor')
+    require(t.dtype == dtype, f'{name} must be {dtype}, got {t.dtype}')
+    require(t.is_contiguous(), f'{name} must be contiguous')
+    if shape is not None:
+        require(tuple(t.shape) == tuple(shape),
+                f'{name} must have shape {tuple(shape)}, got {tuple(t.shape)}')

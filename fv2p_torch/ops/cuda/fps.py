@@ -1,0 +1,61 @@
+"""Exact farthest-point sampling (kernel B2).
+
+CUDA kernel: ``ops/csrc/fps.cu``; it replaces the Pallas kernel
+``fv2p_tpu/ops/pallas/fps.py:fps_pallas``. Pick 0 is the first valid index
+(0 if none); each later pick takes the argmax of the running min squared
+distance, the lowest index winning ties; invalid points never win. When
+fewer points than picks are valid, later picks repeat selected points (the
+caller adds the wraparound padding).
+"""
+import torch
+
+from . import check_launch, check_tensor, launch_counts, library, require, stream_handle
+
+_BIG = 1e10
+# 18 points per thread of one 1024-thread block, coordinates in shared memory
+MAX_POINTS = 18 * 1024
+
+
+def fps_plain(points, valid, num_samples):
+    """points (B, N, 3) f32; valid (B, N) bool -> (B, num_samples) int32."""
+    b, n, _ = points.shape
+    x, y, z = (points[..., i].to(torch.float32) for i in range(3))
+    big = torch.full_like(x, _BIG)
+    dists = torch.where(valid, big, -big)
+    iota = torch.arange(n, device=points.device).expand(b, n)
+    first = torch.where(valid, iota, n).min(dim=1).values
+    last = torch.where(first >= n, 0, first)
+    out = torch.empty((b, num_samples), dtype=torch.int32, device=points.device)
+    out[:, 0] = last
+    for k in range(1, num_samples):
+        li = last[:, None]
+        d = ((x - x.gather(1, li)) ** 2 + (y - y.gather(1, li)) ** 2
+             + (z - z.gather(1, li)) ** 2)
+        dists = torch.minimum(dists, torch.where(valid, d, -big))
+        last = torch.argmax(dists, dim=1)      # first maximal index
+        out[:, k] = last
+    return out
+
+
+def fps_cuda(points, valid, num_samples):
+    b, n, _ = points.shape
+    check_tensor(points, 'points', torch.float32, (b, n, 3))
+    check_tensor(valid, 'valid', torch.bool, (b, n))
+    require(n <= MAX_POINTS, f'fps kernel takes at most {MAX_POINTS} points')
+    x, y, z = (points[..., i].contiguous() for i in range(3))
+    out = torch.empty((b, num_samples), dtype=torch.int32, device=points.device)
+    lib = library('fps')
+    code = lib.fv2p_fps(x.data_ptr(), y.data_ptr(), z.data_ptr(),
+                        valid.data_ptr(), out.data_ptr(), b, n, num_samples,
+                        stream_handle(points.device))
+    check_launch('fps', lib, code)
+    launch_counts['fps'] += 1
+    return out
+
+
+def fps(points, valid, num_samples):
+    """Dispatch: plain version for CPU tensors, the CUDA kernel otherwise."""
+    if points.device.type == 'cpu':
+        return fps_plain(points, valid, num_samples)
+    return fps_cuda(points.float().contiguous(), valid.contiguous(),
+                    num_samples)

@@ -1,0 +1,30 @@
+"""Box coders (reference ``pcdet/utils/box_coder_utils.py``). Decode only:
+the port runs inference."""
+import torch
+
+
+class ResidualCoder:
+    """SECOND-style 7-dim residual coder: (xt, yt) normalized by the anchor
+    BEV diagonal, zt by dza, log-dims, raw angle difference."""
+
+    def __init__(self, code_size=7, **kwargs):
+        self.code_size = code_size
+
+    def decode(self, box_encodings, anchors):
+        """box_encodings (..., 7), anchors (..., 7 + C) -> (..., 7 + C)."""
+        xa, ya, za, dxa, dya, dza = [anchors[..., i] for i in range(6)]
+        ra = anchors[..., 6]
+        xt, yt, zt, dxt, dyt, dzt = [box_encodings[..., i] for i in range(6)]
+        rt = box_encodings[..., 6]
+
+        diagonal = torch.sqrt(dxa ** 2 + dya ** 2)
+        xg = xt * diagonal + xa
+        yg = yt * diagonal + ya
+        zg = zt * dza + za
+        dxg = torch.exp(dxt) * dxa
+        dyg = torch.exp(dyt) * dya
+        dzg = torch.exp(dzt) * dza
+        rg = rt + ra
+        cgs = [box_encodings[..., i] + anchors[..., i]
+               for i in range(7, anchors.shape[-1])]
+        return torch.stack([xg, yg, zg, dxg, dyg, dzg, rg, *cgs], dim=-1)

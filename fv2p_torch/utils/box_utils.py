@@ -1,0 +1,40 @@
+"""3D box geometry (reference ``pcdet/utils/box_utils.py``). Boxes are
+(N, 7): [x, y, z, dx, dy, dz, heading] with (x, y, z) the box center and
+heading a CCW rotation about +z."""
+import torch
+
+from .common_utils import device_constant
+
+# Corner template of the reference boxes_to_corners_3d:
+#     7 -------- 4
+#    /|         /|
+#   6 -------- 5 .
+#   | |        | |
+#   . 3 -------- 0
+#   |/         |/
+#   2 -------- 1
+_CORNER_TEMPLATE = [
+    [1, 1, -1], [1, -1, -1], [-1, -1, -1], [-1, 1, -1],
+    [1, 1, 1], [1, -1, 1], [-1, -1, 1], [-1, 1, 1],
+]
+
+
+def _template(boxes, rows, cols):
+    t = device_constant(_CORNER_TEMPLATE, boxes.dtype, boxes.device)
+    return t[:rows, :cols] / 2
+
+
+def boxes_to_corners_bev(boxes3d):
+    """(N, 7) -> (N, 4, 2) BEV corner xy (bottom face order 0,1,2,3)."""
+    corners = boxes3d[:, None, 3:5] * _template(boxes3d, 4, 2)[None]
+    cosa = torch.cos(boxes3d[:, 6])[:, None]
+    sina = torch.sin(boxes3d[:, 6])[:, None]
+    x = corners[..., 0] * cosa - corners[..., 1] * sina
+    y = corners[..., 0] * sina + corners[..., 1] * cosa
+    return torch.stack([x, y], dim=-1) + boxes3d[:, None, 0:2]
+
+
+def boxes_to_CTcorners_3d(boxes3d):
+    """Canonical (un-rotated, un-translated) corners (N, 8, 3) for the
+    corner-geometry stream."""
+    return boxes3d[:, None, 3:6] * _template(boxes3d, 8, 3)[None]

@@ -1,0 +1,114 @@
+"""Weights for the port: carried across from the JAX model, or seeded.
+
+``load_flax_variables(model, variables_np)`` fills a torch model from the
+JAX model's ``{'params', 'batch_stats'}`` tree (converted to numpy). The
+torch modules carry the flax module names, so each flax module path maps to
+one torch submodule (``a/b/c`` -> ``a.b.c``):
+
+* ``Dense`` kernel (I, O) -> ``Linear`` weight (O, I); a 1x1 ``Conv``
+  kernel (1, 1, I, O) also maps onto a ``Dense``;
+* ``Conv`` kernel (kH, kW, I, O) -> (O, I, kH, kW);
+* ``ConvTranspose`` kernel (kH, kW, I, O) -> spatially flipped, (I, O, kH, kW);
+* sparse-conv kernels (K, Cin, Cout) stay as they are;
+* BatchNorm ``scale``/``bias`` + ``batch_stats`` ``mean``/``var`` -> weight,
+  bias, running_mean, running_var.
+
+Any flax leaf without a torch home, or torch tensor left unfilled, raises.
+
+``init_random_(model, seed)`` draws weights from a ``torch.Generator``: the
+same initialisers as the flax modules (LeCun normal kernels, zero biases,
+identity BatchNorm), so a smoke run's activations keep realistic scales.
+"""
+import math
+
+import numpy as np
+import torch
+
+from .models.layers import BatchNorm, ConvTranspose2d, Dense
+from .ops.sparse.conv import MaskedBatchNorm, _SparseConvBase
+
+
+def _flatten(tree, prefix=()):
+    for k, v in tree.items():
+        if isinstance(v, dict) or hasattr(v, 'items'):
+            yield from _flatten(v, prefix + (k,))
+        else:
+            yield prefix + (k,), np.asarray(v)
+
+
+def _converted(module, leaf, arr):
+    """The torch attribute name and tensor for one flax leaf of a module."""
+    if isinstance(module, (BatchNorm, MaskedBatchNorm)):
+        name = {'scale': 'weight', 'bias': 'bias', 'mean': 'running_mean',
+                'var': 'running_var'}[leaf]
+        return name, arr
+    if leaf == 'bias':
+        return 'bias', arr
+    if leaf != 'kernel':
+        raise KeyError(leaf)
+    if isinstance(module, _SparseConvBase):
+        return 'kernel', arr
+    if isinstance(module, Dense):
+        return 'weight', arr.reshape(arr.shape[-2], arr.shape[-1]).T
+    if isinstance(module, ConvTranspose2d):
+        return 'weight', arr[::-1, ::-1].transpose(2, 3, 0, 1)
+    if isinstance(module, torch.nn.Conv2d):
+        return 'weight', arr.transpose(3, 2, 0, 1)
+    raise TypeError(f'no flax mapping for {type(module).__name__}')
+
+
+def load_flax_variables(model, variables_np):
+    """Copy a flax variable tree into ``model`` (in place); returns model."""
+    state = model.state_dict()
+    filled = set()
+    unmatched = []
+    for collection in ('params', 'batch_stats'):
+        for path, arr in _flatten(variables_np.get(collection, {})):
+            mod_path, leaf = '.'.join(path[:-1]), path[-1]
+            try:
+                module = model.get_submodule(mod_path)
+                name, value = _converted(module, leaf, arr)
+            except (AttributeError, KeyError, TypeError):
+                unmatched.append('/'.join((collection,) + path))
+                continue
+            key = f'{mod_path}.{name}'
+            if key not in state or tuple(state[key].shape) != value.shape:
+                unmatched.append('/'.join((collection,) + path))
+                continue
+            state[key].copy_(torch.tensor(np.array(value)))
+            filled.add(key)
+    unfilled = sorted(set(state) - filled)
+    if unmatched or unfilled:
+        raise ValueError(f'flax -> torch weight map: unmatched flax leaves '
+                         f'{unmatched}; unfilled torch tensors {unfilled}')
+    return model
+
+
+@torch.no_grad()
+def init_random_(model, seed=0):
+    """Seeded initialisation on the CPU, copied to the model's device, so a
+    seed gives the same weights on every device."""
+    gen = torch.Generator().manual_seed(seed)
+    for name, module in model.named_modules():
+        if isinstance(module, (BatchNorm, MaskedBatchNorm)):
+            module.weight.fill_(1.0)
+            module.bias.zero_()
+            module.running_mean.zero_()
+            module.running_var.fill_(1.0)
+            continue
+        if isinstance(module, _SparseConvBase):
+            w = module.kernel
+            fan_in = w.shape[0] * w.shape[1]
+        elif isinstance(module, ConvTranspose2d):
+            w = module.weight                       # (I, O, kH, kW)
+            fan_in = w.shape[0] * w.shape[2] * w.shape[3]
+        elif isinstance(module, (Dense, torch.nn.Conv2d)):
+            w = module.weight                       # (O, I, ...)
+            fan_in = math.prod(w.shape[1:])
+        else:
+            continue
+        std = 0.001 if name.endswith('conv_box') else 1.0 / math.sqrt(fan_in)
+        w.copy_(torch.randn(w.shape, generator=gen) * std)
+        if module.bias is not None:
+            module.bias.fill_(-math.log(99.0) if name.endswith('conv_cls') else 0.0)
+    return model

@@ -1,0 +1,286 @@
+"""Each kernel's plain PyTorch version against the JAX function it ports,
+run as the JAX package's own tests run it on the CPU: the Pallas kernel in
+interpret mode, and the XLA path beside it.
+
+  B1 rotated-IoU overlap  <- ops/pallas/rotated_iou.py:overlap_matrix
+  B2 farthest-point sample <- ops/pallas/fps.py:fps_pallas
+  B3 exact 3-NN            <- ops/pallas/three_nn.py:three_nn_pallas
+  B4 fused SA group        <- ops/pallas/sa_group.py:sa_group_pool_fused
+
+Tolerances: indices, keep flags and counts are exact. B3 distances: rtol
+1e-6 (a few ulps: XLA:CPU fuses multiply-adds). B1 areas: atol 1e-4
+(m^2; the same clip arithmetic in another evaluation order). B4 output is
+bf16: |diff| <= 1.6e-2 * max(1, |ref|), about two bf16 ulps, since both
+sides round layer 1 to bf16 and differ only in the f32 order of the
+layer-2 sums.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import fv2p_tpu.models.roi_heads.iouguided_roi_head as jax_roi
+from fv2p_tpu.ops import pointops as jax_pointops
+from fv2p_tpu.ops.pallas.fps import fps_pallas
+from fv2p_tpu.ops.pallas.rotated_iou import overlap_matrix as jax_overlap_matrix
+from fv2p_tpu.ops.pallas.sa_group import sa_group_pool_fused as jax_sa_fused
+from fv2p_tpu.ops.pallas.three_nn import three_nn_pallas
+from fv2p_tpu.utils import iou3d as jax_iou3d
+
+from fv2p_torch.models.roi_heads.iouguided_roi_head import _SAModuleMSG
+from fv2p_torch.ops import pointops
+from fv2p_torch.ops.cuda import launch_counts, reset_launch_counts
+from fv2p_torch.ops.cuda.fps import fps, fps_plain
+from fv2p_torch.ops.cuda.rotated_iou import overlap_matrix_plain
+from fv2p_torch.ops.cuda.sa_group import sa_group_pool_plain
+from fv2p_torch.ops.cuda.three_nn import three_nn_plain
+from fv2p_torch.utils import iou3d
+from fv2p_torch.weights import load_flax_variables
+
+RADII = (0.8, 1.6)
+NSAMPLES = (16, 32)
+B4_TOL = 1.6e-2
+
+
+def t(x):
+    return torch.from_numpy(np.array(x))
+
+
+def random_boxes(rng, n, extent=12.0):
+    """(n, 7) boxes clustered enough that many pairs overlap."""
+    return np.concatenate([
+        rng.uniform(-extent, extent, (n, 2)), rng.uniform(-1, 1, (n, 1)),
+        rng.uniform(1.0, 5.0, (n, 2)), rng.uniform(1.0, 2.0, (n, 1)),
+        rng.uniform(-np.pi, np.pi, (n, 1))], axis=1).astype(np.float32)
+
+
+# ---------------------------------------------------------------- B1 + NMS
+
+def test_b1_overlap_matches_clip_and_pallas():
+    rng = np.random.RandomState(0)
+    a = random_boxes(rng, 70, extent=4.0)
+    b = random_boxes(rng, 45, extent=4.0)
+    b[:5] = a[:5]                                    # identical pairs
+    ca = jax_iou3d._bev_corners_ccw(jnp.asarray(a))
+    cb = jax_iou3d._bev_corners_ccw(jnp.asarray(b))
+    tca, tcb = iou3d._bev_corners_ccw(t(a)), iou3d._bev_corners_ccw(t(b))
+    np.testing.assert_allclose(tca.numpy(), np.asarray(ca), atol=1e-5)
+
+    got = overlap_matrix_plain(tca, tcb).numpy()
+    pallas = np.asarray(jax_overlap_matrix(ca, cb))        # interpret on CPU
+    n, m = len(a), len(b)
+    xla = np.asarray(jax_iou3d._polygon_clip_area(
+        jnp.broadcast_to(ca[:, None], (n, m, 4, 2)),
+        jnp.broadcast_to(cb[None, :], (n, m, 4, 2))))
+    np.testing.assert_allclose(got, pallas, rtol=0, atol=1e-4)
+    np.testing.assert_allclose(got, xla, rtol=0, atol=1e-4)
+    assert (got > 0).mean() > 0.2                   # many real overlaps
+    np.testing.assert_allclose(np.diag(got[:5, :5]), a[:5, 3] * a[:5, 4],
+                               rtol=1e-4)
+
+
+@pytest.mark.parametrize('n,post_max,thresh', [(300, 50, 0.3),
+                                                (2200, 120, 0.2)])
+def test_nms_rotated_matches_jax(n, post_max, thresh):
+    """Dense path (n <= 2048) and the blocked path with several blocks."""
+    rng = np.random.RandomState(n)
+    boxes = random_boxes(rng, n, extent=9.0)
+    scores = rng.rand(n).astype(np.float32)
+    scores[rng.rand(n) < 0.1] = -np.inf               # invalid entries
+    scores[10:20] = scores[0]                         # exact score ties
+    ref_idx, ref_valid = jax_iou3d.nms_rotated(
+        jnp.asarray(boxes), jnp.asarray(scores), thresh, pre_max=n,
+        post_max=post_max)
+    idx, valid = iou3d.nms_rotated(t(boxes), t(scores), thresh, pre_max=n,
+                                   post_max=post_max)
+    ref_valid = np.asarray(ref_valid)
+    np.testing.assert_array_equal(valid.numpy(), ref_valid)
+    np.testing.assert_array_equal(idx.numpy()[ref_valid],
+                                  np.asarray(ref_idx)[ref_valid])
+    assert 10 < ref_valid.sum()
+
+
+@pytest.mark.parametrize('n', [40, 2100])
+def test_nms_rotated_long_suppression_chain(n):
+    """Boxes in a row, each overlapping only its neighbours: every second
+    box survives, and the greedy fixed point needs about n steps, many
+    rounds of them (dense path, and blocked with the chain crossing a
+    block boundary)."""
+    boxes = np.zeros((n, 7), np.float32)
+    boxes[:, 0] = np.arange(n) * 0.5
+    boxes[:, 3:6] = (1.0, 1.0, 1.0)
+    scores = np.linspace(1.0, 0.5, n).astype(np.float32)
+    post_max = n // 2 + 5
+    ref_idx, ref_valid = jax_iou3d.nms_rotated(
+        jnp.asarray(boxes), jnp.asarray(scores), 0.2, pre_max=n,
+        post_max=post_max)
+    idx, valid = iou3d.nms_rotated(t(boxes), t(scores), 0.2, pre_max=n,
+                                   post_max=post_max)
+    ref_valid = np.asarray(ref_valid)
+    np.testing.assert_array_equal(valid.numpy(), ref_valid)
+    np.testing.assert_array_equal(idx.numpy()[ref_valid],
+                                  np.asarray(ref_idx)[ref_valid])
+    np.testing.assert_array_equal(idx.numpy()[ref_valid], np.arange(0, n, 2))
+
+
+# ---------------------------------------------------------------------- B2
+
+def test_b2_fps_matches_pallas_with_invalid_rows():
+    rng = np.random.RandomState(0)
+    b, n, k = 4, 400, 128
+    pts = (rng.rand(b, n, 3) * 50).astype(np.float32)
+    valid = np.ones((b, n), bool)
+    valid[1, 250:] = False
+    valid[2, ::3] = False
+    valid[3, :] = False                               # no valid point
+    ref = np.asarray(fps_pallas(jnp.asarray(pts), jnp.asarray(valid), k,
+                                interpret=True))
+    got = fps_plain(t(pts), t(valid), k)
+    np.testing.assert_array_equal(got.numpy(), ref)
+    np.testing.assert_array_equal(got[3].numpy(), np.zeros(k, np.int32))
+
+
+def test_b2_batch_fps_wraparound_matches_jax():
+    rng = np.random.RandomState(1)
+    b, n, k = 2, 64, 32
+    pts = rng.rand(b, n, 3).astype(np.float32)
+    valid = np.ones((b, n), bool)
+    valid[0, 10:] = False                             # 10 valid < K
+    ref = np.asarray(jax_pointops.farthest_point_sample_batch(
+        jnp.asarray(pts), jnp.asarray(valid), k))
+    got = pointops.farthest_point_sample_batch(t(pts), t(valid), k)
+    np.testing.assert_array_equal(got.numpy(), ref)
+    np.testing.assert_array_equal(got[0, 10:20].numpy(), got[0, :10].numpy())
+
+
+def test_cpu_dispatch_takes_plain_version():
+    """A CPU tensor runs the plain version and launches nothing."""
+    reset_launch_counts()
+    pts = torch.rand(1, 50, 3)
+    out = fps(pts, torch.ones(1, 50, dtype=torch.bool), 8)
+    assert out.shape == (1, 8) and out.dtype == torch.int32
+    assert all(v == 0 for v in launch_counts.values())
+
+
+# ---------------------------------------------------------------------- B3
+
+def test_b3_three_nn_matches_pallas():
+    rng = np.random.RandomState(7)
+    src = (rng.randn(700, 3) * 10).astype(np.float32)
+    q = (rng.randn(300, 3) * 10).astype(np.float32)
+    valid = rng.rand(700) > 0.15
+    d_ref, i_ref = three_nn_pallas(jnp.asarray(src), jnp.asarray(valid),
+                                   jnp.asarray(q), bm=128, bn=512,
+                                   interpret=True)
+    d, i = three_nn_plain(t(src)[None], t(valid)[None], t(q)[None])
+    np.testing.assert_array_equal(i[0].numpy(), np.asarray(i_ref))
+    # XLA:CPU contracts the squared distance into fused multiply-adds, the
+    # plain version does not: the distances may differ in the last ulp
+    np.testing.assert_allclose(d[0].numpy(), np.asarray(d_ref), rtol=1e-6)
+
+
+def test_b3_three_nn_ties_lowest_index():
+    rng = np.random.RandomState(8)
+    src = np.repeat(rng.randn(60, 3).astype(np.float32), 4, axis=0)
+    q = src[::5] + 1e-6
+    ones = np.ones(len(src), bool)
+    d_ref, i_ref = three_nn_pallas(jnp.asarray(src), jnp.asarray(ones),
+                                   jnp.asarray(q), bm=128, bn=128,
+                                   interpret=True)
+    _, i = three_nn_plain(t(src)[None], t(ones)[None], t(q)[None])
+    np.testing.assert_array_equal(i[0].numpy(), np.asarray(i_ref))
+
+
+def test_b3_interpolate_matches_xla_path():
+    """Against the off-TPU XLA path (matmul-expanded distances) on inputs
+    without near-ties, with a float tolerance."""
+    rng = np.random.RandomState(9)
+    src = (rng.randn(2, 500, 3) * 5).astype(np.float32)
+    feats = rng.randn(2, 500, 16).astype(np.float32)
+    valid = rng.rand(2, 500) > 0.2
+    q = (rng.randn(2, 200, 3) * 5).astype(np.float32)
+    ref = np.stack([np.asarray(jax_pointops.three_nn_interpolate(
+        jnp.asarray(src[b]), jnp.asarray(valid[b]), jnp.asarray(feats[b]),
+        jnp.asarray(q[b]))) for b in range(2)])
+    got = pointops.three_nn_interpolate(t(src), t(valid), t(feats), t(q))
+    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------------------------------------- B4
+
+def _sa_data(seed, r=3, p=64, g=27, c=64):
+    """Point sets whose center-point distances keep clear of the ball
+    boundaries (the Pallas kernel's d2 is a matmul expansion, the port's
+    elementwise), with some grid centers far from every point."""
+    for s in range(seed, seed + 50):
+        rng = np.random.RandomState(s)
+        xyz = rng.randn(r, p, 3).astype(np.float32)
+        valid = rng.rand(r, p) < 0.9
+        feats = rng.randn(r, p, c).astype(np.float32)
+        centers = (rng.randn(r, g, 3) * 0.7).astype(np.float32)
+        centers[:, -3:] = 50.0                         # empty balls
+        d2 = ((centers[:, :, None, :].astype(np.float64)
+               - xyz[:, None, :, :]) ** 2).sum(-1)
+        if min(np.abs(d2 - rad * rad).min() for rad in RADII) > 1e-4:
+            return xyz, valid, feats, centers
+    raise AssertionError('no boundary-safe seed found')
+
+
+def assert_bf16_close(got, ref):
+    got = got.detach().float().numpy()
+    ref = np.asarray(jnp.asarray(ref, jnp.float32))
+    assert got.shape == ref.shape
+    err = np.abs(got - ref) / np.maximum(np.abs(ref), 1.0)
+    assert err.max() <= B4_TOL, err.max()
+
+
+def test_b4_sa_group_matches_pallas():
+    xyz, valid, _, centers = _sa_data(0)
+    rng = np.random.RandomState(3)
+    r, p, g, h = xyz.shape[0], xyz.shape[1], centers.shape[1], 64
+    z = rng.randn(2, r, p, h).astype(np.float32)
+    cw = rng.randn(2, r, g, h).astype(np.float32)
+    w2 = (rng.randn(2, h, h) / 8).astype(np.float32)
+    b1 = rng.randn(2, h).astype(np.float32) * 0.5
+    b2 = rng.randn(2, h).astype(np.float32) * 0.1
+    pad = 128 - h
+    ref = jax_sa_fused(
+        jnp.asarray(centers), jnp.asarray(xyz), jnp.asarray(valid),
+        [jnp.pad(jnp.asarray(z[i]), ((0, 0), (0, 0), (0, pad))) for i in range(2)],
+        [jnp.pad(jnp.asarray(cw[i]), ((0, 0), (0, 0), (0, pad))) for i in range(2)],
+        [jnp.pad(jnp.asarray(w2[i]), ((0, pad), (0, pad))) for i in range(2)],
+        [jnp.pad(jnp.asarray(b1[i]), (0, pad))[None] for i in range(2)],
+        [jnp.pad(jnp.asarray(b2[i]), (0, pad))[None] for i in range(2)],
+        RADII, NSAMPLES, interpret=True)
+    got = sa_group_pool_plain(
+        t(centers), t(xyz), t(valid), t(z).to(torch.bfloat16), t(cw),
+        t(w2).to(torch.bfloat16), t(b1), t(b2), RADII, NSAMPLES)
+    assert got.dtype == torch.bfloat16
+    assert_bf16_close(got, ref)
+    # an empty ball pools relu(relu(b1) @ W2 + b2) over its single slot
+    h1 = torch.relu(t(b1)).to(torch.bfloat16).float()
+    empty = torch.relu(torch.einsum('ik,ikj->ij', h1, t(w2).to(torch.bfloat16)
+                                    .float()) + t(b2)).reshape(-1)
+    assert_bf16_close(got[:, -1].reshape(r, -1)[0:1], empty[None].numpy())
+
+
+def test_b4_sa_module_fused_path_matches_jax(monkeypatch):
+    """The bf16 SA module: folded layer-1 precompute + plain B4 against the
+    JAX module on its fused path (Pallas interpret mode)."""
+    xyz, valid, feats, centers = _sa_data(1)
+    jmod = jax_roi._SAModuleMSG(RADII, NSAMPLES, ((64, 64), (64, 64)),
+                                compute_dtype=jnp.bfloat16)
+    args = tuple(jnp.asarray(x) for x in (xyz, valid, feats, centers))
+    variables = jmod.init(jax.random.PRNGKey(0), *args, train=False)
+    monkeypatch.setattr(jax_roi, '_FUSED_SA_MODE', 'interpret')
+    ref = jmod.apply(variables, *args, train=False)
+
+    tmod = _SAModuleMSG(RADII, NSAMPLES, ((64, 64), (64, 64)), feats.shape[-1],
+                        compute_dtype=torch.bfloat16)
+    load_flax_variables(tmod, jax.tree_util.tree_map(np.asarray,
+                                                     dict(variables)))
+    assert tmod.fused_ok()
+    got = tmod(t(xyz), t(valid), t(feats), t(centers))
+    assert got.shape == ref.shape == (3, 27, 128)
+    assert_bf16_close(got, ref)
