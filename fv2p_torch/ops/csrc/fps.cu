@@ -7,129 +7,266 @@
 // -1e10 and never win.
 //
 // What bounds it on the H100: the dependency chain. The K-1 picks are
-// strictly sequential and each needs an argmax over all N points, so the
-// kernel is a chain of K-1 block-wide reductions; bytes (N*13 B once) and
-// operations (~10 per point per pick) are far below the card's rates.
-// Design: one block of 1024 threads per batch row, so a pick never leaves
-// the SM. Each thread keeps its points' running min distances in registers
-// (points tid, tid+1024, ...; kPointsPerThread of them, so N <= 18432), and
-// the coordinates sit in shared memory (12*N bytes, 216 KB at N = 18000,
-// opted in). A pick is a register scan, a warp-shuffle
-// (value, lowest index) argmax, and one pass over the 32 warp results in
-// shared memory: two __syncthreads per pick. Distances are
-// ((dx*dx + dy*dy) + dz*dz) without fused multiply-adds (--fmad=false), as
-// the plain version rounds them.
+// strictly sequential and each needs an argmax over all N points; bytes
+// (N*13 B once) and operations (~10 per point per pick) are far below the
+// card's rates. What counts is the latency of one pick: the distance pass
+// over a thread's points, plus one cluster-wide exchange.
+//
+// Design: a thread-block cluster of kCluster blocks per scan.
+//   * Block `rank` owns points j*kCluster*kThreads + rank*kThreads + tid.
+//     Their coordinates and running distances live in registers, so the
+//     distance pass reads no memory. Distances are ((dx*dx + dy*dy) + dz*dz)
+//     without fused multiply-adds (--fmad=false), as the plain version
+//     rounds them.
+//   * The running distance is mapped to a u32 key that orders like the float
+//     (sign bit flipped for >= 0, all bits inverted for < 0), so a warp's
+//     argmax with the lowest index winning is two redux.sync operations:
+//     max of the key, then min of the index over the lanes holding that max.
+//   * Every warp packs (key, pick number, index) into one 64-bit word and
+//     lanes 0..kCluster-1 store it into the warp's slot in every block's
+//     shared memory (distributed shared memory, st.shared::cluster). After
+//     one synchronisation every warp of every block reduces all
+//     kCluster*kWarps slots itself with the same two redux.sync, so all
+//     threads know the pick without a broadcast. The picked point's
+//     coordinates come from a copy of the whole scan that every block keeps
+//     in its own shared memory (12*N bytes, opted in). Block 0 writes out.
+//
+// The exchange protocol has no barrier inside the loop. Slots are
+// double-buffered by pick parity: pick k writes buffer k&1. A word carries
+// its pick number, is written with one 64-bit store (single-copy atomic),
+// and a warp polls its local buffer k&1 until every slot shows tag k. A fast
+// warp can run at most one pick ahead: to finish pick k+1 it needs the
+// pick-k+1 word of every warp of the cluster, and a warp computes that word
+// from the pick it reduced out of all pick-k slots, so every warp has
+// consumed buffer k&1 before anyone can store pick k+2 into it. Tags of one
+// buffer differ by 2 between successive uses, so the 16-bit tag never
+// confuses an old word with a new one; the buffers start with tag 0xffff,
+// which is neither 0 nor 1. A cluster barrier after the set-up keeps any
+// remote store from reaching a block that has not initialised its slots,
+// and one before the exit keeps a block alive while peers may still store
+// into it.
+//
+// The shape (8 blocks of 128 threads, 18 points a thread) and the tagged
+// poll are the measured best of cluster 4/8/16 x 128/256/512 threads x
+// cluster barrier/tagged poll at B=4, N=18000, K=16384 on an H100: a
+// barrier.cluster arrive + wait a pick costs more by itself than the whole
+// tagged-poll pick.
 #include <cuda_runtime.h>
 
 #include <cmath>
+#include <cstdint>
 
 namespace {
 
-constexpr int kThreads = 1024;
-constexpr int kPointsPerThread = 18;  // 18000 raw points on the main path
-constexpr int kMaxPoints = kThreads * kPointsPerThread;
+constexpr int kCluster = 8;    // blocks per scan (the portable maximum)
+constexpr int kThreads = 128;  // threads per block
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxPoints = 18432;             // 18000 raw points on the main path
+constexpr int kStride = kCluster * kThreads;  // points the cluster takes per round
+constexpr int kPointsPerThread = (kMaxPoints + kStride - 1) / kStride;
+constexpr int kSlots = kCluster * kWarps;
+constexpr int kSlotsPerLane = (kSlots + 31) / 32;
 constexpr float kBig = 1e10f;
+constexpr unsigned kFull = 0xffffffffu;
+constexpr uint32_t kNoIndex = 0xffffu;        // index field of a slot that holds no point
 
-__device__ __forceinline__ void argmax_merge(float& v, int& i, float ov, int oi) {
-  if (ov > v || (ov == v && oi < i)) {
-    v = ov;
-    i = oi;
-  }
+static_assert(kCluster >= 1 && kCluster <= 8, "portable cluster size");
+static_assert(kThreads % 32 == 0 && kThreads <= 1024, "block size");
+static_assert(kMaxPoints < (int)kNoIndex, "index field is 16 bits");
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+
+// shared::cluster address of this block's shared address `addr` in block `rank`
+__device__ __forceinline__ uint32_t map_to_rank(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+
+__device__ __forceinline__ void store_cluster(uint32_t addr, unsigned long long v) {
+  asm volatile("st.relaxed.cluster.shared::cluster.u64 [%0], %1;" ::"r"(addr), "l"(v)
+               : "memory");
+}
+
+__device__ __forceinline__ unsigned long long load_slot(uint32_t addr) {
+  unsigned long long v;
+  asm volatile("ld.volatile.shared.u64 %0, [%1];" : "=l"(v) : "r"(addr) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void cluster_barrier() {
+  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
+// f32 -> u32 with the same order: -inf < -1e10 < +0.0 < 1e10. (-0.0 cannot
+// arise: a running distance is a sum of squares or one of the constants.)
+__device__ __forceinline__ uint32_t ordered_key(float v) {
+  const uint32_t u = __float_as_uint(v);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+// Cluster-wide argmax of (key, lowest index) for pick number k. Every thread
+// of the cluster calls it with its own candidate and gets the winning index.
+__device__ __forceinline__ int exchange(uint32_t key, uint32_t idx, int k,
+                                        uint32_t remote_slot, uint32_t local_slots,
+                                        int lane) {
+  const uint32_t wmax = __reduce_max_sync(kFull, key);
+  const uint32_t wmin = __reduce_min_sync(kFull, key == wmax ? idx : kFull);
+  const uint32_t tag = static_cast<uint32_t>(k) & 0xffffu;
+  const uint32_t buf = static_cast<uint32_t>(k & 1) * (kSlots * 8u);
+  if (lane < kCluster) {
+    const unsigned long long word = (static_cast<unsigned long long>(wmax) << 32) |
+                                    (tag << 16) | (wmin & 0xffffu);
+    store_cluster(remote_slot + buf, word);
+  }
+  __syncwarp();
+
+  unsigned long long w[kSlotsPerLane];
+  bool ready;
+  do {
+    ready = true;
+#pragma unroll
+    for (int q = 0; q < kSlotsPerLane; ++q) {
+      const int s = lane + 32 * q;
+      if (s < kSlots) {
+        w[q] = load_slot(local_slots + buf + s * 8u);
+        ready = ready && ((static_cast<uint32_t>(w[q]) >> 16) == tag);
+      } else {
+        w[q] = kNoIndex;  // key 0 loses to every real key
+      }
+    }
+  } while (!__all_sync(kFull, ready));
+
+  uint32_t bk = 0;
+#pragma unroll
+  for (int q = 0; q < kSlotsPerLane; ++q) bk = max(bk, static_cast<uint32_t>(w[q] >> 32));
+  uint32_t bi = kFull;
+#pragma unroll
+  for (int q = 0; q < kSlotsPerLane; ++q)
+    if (static_cast<uint32_t>(w[q] >> 32) == bk)
+      bi = min(bi, static_cast<uint32_t>(w[q]) & 0xffffu);
+  const uint32_t cmax = __reduce_max_sync(kFull, bk);
+  return static_cast<int>(__reduce_min_sync(kFull, bk == cmax ? bi : kFull));
+}
+
+// kWork = false is the synchronisation skeleton alone: the same cluster, the
+// same stores, tagged poll, reductions and coordinate load, with a hash
+// of the last pick in place of the distance pass. It times the floor that
+// the chain of K-1 exchanges sets under any amount of distance work.
+template <bool kWork>
 __global__ void __launch_bounds__(kThreads, 1)
 fps_kernel(const float* __restrict__ gx, const float* __restrict__ gy,
            const float* __restrict__ gz, const unsigned char* __restrict__ valid,
            int* __restrict__ out, int n, int k_samples) {
-  extern __shared__ float smem[];
-  __shared__ float red_val[32];
-  __shared__ int red_idx[32];
-  __shared__ int s_pick;
+  extern __shared__ float coords[];  // xs | ys | zs of the whole scan
+  __shared__ __align__(8) unsigned long long slots[2 * kSlots];
 
-  const int b = blockIdx.x;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const size_t row = (size_t)b * n;
-  float* xs = smem;
-  float* ys = smem + n;
-  float* zs = smem + 2 * n;
+  const int rank = static_cast<int>(cluster_rank());
+  const int b = blockIdx.x / kCluster;
+  const size_t row = static_cast<size_t>(b) * n;
+  float* xs = coords;
+  float* ys = coords + n;
+  float* zs = coords + 2 * n;
   for (int i = tid; i < n; i += kThreads) {
     xs[i] = gx[row + i];
     ys[i] = gy[row + i];
     zs[i] = gz[row + i];
   }
+  for (int i = tid; i < 2 * kSlots; i += kThreads) slots[i] = ~0ull;
 
-  // running min distances in registers; first valid index by a min-reduction
+  // this thread's points: coordinates and running min distances in registers
+  const int base = rank * kThreads + tid;
+  float px[kPointsPerThread], py[kPointsPerThread], pz[kPointsPerThread];
   float dist[kPointsPerThread];
-  int first = 0x7fffffff;
+  int first = -1;
 #pragma unroll
   for (int j = 0; j < kPointsPerThread; ++j) {
-    const int i = tid + j * kThreads;
-    const bool ok = i < n && valid[row + i];
-    dist[j] = i < n ? (ok ? kBig : -kBig) : -INFINITY;
-    if (ok && i < first) first = i;
+    const int i = base + j * kStride;
+    const bool in = i < n;
+    const bool ok = in && valid[row + i];
+    px[j] = in ? gx[row + i] : 0.f;
+    py[j] = in ? gy[row + i] : 0.f;
+    pz[j] = in ? gz[row + i] : 0.f;
+    dist[j] = in ? (ok ? kBig : -kBig) : -INFINITY;
+    if (ok && first < 0) first = i;
   }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) first = min(first, __shfl_down_sync(0xffffffffu, first, off));
-  if (lane == 0) red_idx[warp] = first;
-  __syncthreads();
-  if (warp == 0) {
-    int f = red_idx[lane];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) f = min(f, __shfl_down_sync(0xffffffffu, f, off));
-    if (lane == 0) {
-      s_pick = f >= n ? 0 : f;
-      out[(size_t)b * k_samples] = s_pick;
-    }
-  }
-  __syncthreads();
-  int last = s_pick;
+
+  const uint32_t local_slots = smem_addr(slots);
+  const uint32_t remote_slot =
+      map_to_rank(local_slots, lane < kCluster ? lane : 0) + (rank * kWarps + warp) * 8u;
+  cluster_barrier();  // coordinates and slots of every block are in place
+
+  // pick 0: the first valid index, 0 if the row has none
+  int last = exchange(first >= 0 ? kFull - static_cast<uint32_t>(first) : 0u,
+                      first >= 0 ? static_cast<uint32_t>(first) : 0u, 0, remote_slot,
+                      local_slots, lane);
+  int* out_row = out + static_cast<size_t>(b) * k_samples;
+  const bool writer = rank == 0 && tid == 0;
+  if (writer) out_row[0] = last;
 
   for (int k = 1; k < k_samples; ++k) {
     const float cx = xs[last], cy = ys[last], cz = zs[last];
-    float best = -INFINITY;
-    int besti = 0x7fffffff;
+    uint32_t key, idx;
+    if (kWork) {
+      float best = -INFINITY;
+      idx = kNoIndex;
 #pragma unroll
-    for (int j = 0; j < kPointsPerThread; ++j) {
-      const int i = tid + j * kThreads;
-      if (i < n) {
-        const float dx = xs[i] - cx, dy = ys[i] - cy, dz = zs[i] - cz;
+      for (int j = 0; j < kPointsPerThread; ++j) {
+        const float dx = px[j] - cx, dy = py[j] - cy, dz = pz[j] - cz;
         const float d = dx * dx + dy * dy + dz * dz;
         const float nd = fminf(dist[j], d);
         dist[j] = nd;
-        if (nd > best) {
+        if (nd > best) {  // strict: the lowest of this thread's indices wins
           best = nd;
-          besti = i;
+          idx = static_cast<uint32_t>(base + j * kStride);
         }
       }
+      key = ordered_key(best);
+    } else {
+      key = (__float_as_uint(cx + cy + cz) * 2654435761u) ^ (base * 40503u + k);
+      idx = base < n ? base : 0;
     }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const float ov = __shfl_down_sync(0xffffffffu, best, off);
-      const int oi = __shfl_down_sync(0xffffffffu, besti, off);
-      argmax_merge(best, besti, ov, oi);
-    }
-    if (lane == 0) {
-      red_val[warp] = best;
-      red_idx[warp] = besti;
-    }
-    __syncthreads();
-    if (warp == 0) {
-      float v = red_val[lane];
-      int vi = red_idx[lane];
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        const float ov = __shfl_down_sync(0xffffffffu, v, off);
-        const int oi = __shfl_down_sync(0xffffffffu, vi, off);
-        argmax_merge(v, vi, ov, oi);
-      }
-      if (lane == 0) {
-        s_pick = vi;
-        out[(size_t)b * k_samples + k] = vi;
-      }
-    }
-    __syncthreads();
-    last = s_pick;
+    last = exchange(key, idx, k, remote_slot, local_slots, lane);
+    if (writer) out_row[k] = last;
   }
+  cluster_barrier();  // no block leaves while a peer may still store into it
+}
+
+template <bool kWork>
+int launch(const float* x, const float* y, const float* z, const unsigned char* valid,
+           int* out, int b, int n, int k, void* stream) {
+  if (b == 0 || k == 0) return 0;
+  if (n < 1 || n > kMaxPoints) return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = fps_kernel<kWork>;
+  const int smem_bytes = 3 * n * static_cast<int>(sizeof(float));
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kCluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(b) * kCluster);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem_bytes;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, x, y, z, valid, out, n, k);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -138,17 +275,18 @@ extern "C" const char* fv2p_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// x, y, z (b,n) f32; valid (b,n) uint8; out (b,k) int32. Requires n <= 18432.
+// x, y, z (b,n) f32; valid (b,n) uint8; out (b,k) int32. Requires
+// n <= 18432 and a card with thread-block clusters (compute capability 9.0).
 extern "C" int fv2p_fps(const float* x, const float* y, const float* z,
                         const unsigned char* valid, int* out, int b, int n, int k,
                         void* stream) {
-  if (b == 0 || k == 0) return 0;
-  if (n < 1 || n > kMaxPoints) return static_cast<int>(cudaErrorInvalidValue);
-  const int smem_bytes = 3 * n * static_cast<int>(sizeof(float));
-  cudaError_t err = cudaFuncSetAttribute(
-      fps_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  fps_kernel<<<b, kThreads, smem_bytes, static_cast<cudaStream_t>(stream)>>>(
-      x, y, z, valid, out, n, k);
-  return static_cast<int>(cudaGetLastError());
+  return launch<true>(x, y, z, valid, out, b, n, k, stream);
+}
+
+// The exchange chain of fv2p_fps without its distance work (a timing floor;
+// `out` receives indices below n that mean nothing).
+extern "C" int fv2p_fps_chain(const float* x, const float* y, const float* z,
+                              const unsigned char* valid, int* out, int b, int n, int k,
+                              void* stream) {
+  return launch<false>(x, y, z, valid, out, b, n, k, stream);
 }

@@ -31,14 +31,15 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '--fmad=false', '-Xptxas=-v', '-shared', '-Xcompiler', '-fPIC')
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# C entry point of each kernel and its argument types (pointers, ints, the
-# stream last); every entry point returns cudaGetLastError() as an int.
+# C entry points of each library and their argument types (pointers, ints,
+# the stream last); every entry point returns cudaGetLastError() as an int.
+_FPS_ARGS = (_P, _P, _P, _P, _P, _I, _I, _I, _P)
 SIGNATURES = {
-    'rotated_iou': ('fv2p_overlap_matrix', (_P, _P, _P, _I, _I, _P)),
-    'fps': ('fv2p_fps', (_P, _P, _P, _P, _P, _I, _I, _I, _P)),
-    'three_nn': ('fv2p_three_nn', (_P, _P, _P, _P, _P, _I, _I, _I, _P)),
-    'sa_group': ('fv2p_sa_group', (_P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                   _I, _I, _I, _F, _F, _I, _I, _P)),
+    'rotated_iou': {'fv2p_overlap_matrix': (_P, _P, _P, _I, _I, _P)},
+    'fps': {'fv2p_fps': _FPS_ARGS, 'fv2p_fps_chain': _FPS_ARGS},
+    'three_nn': {'fv2p_three_nn': (_P, _P, _P, _P, _P, _I, _I, _I, _P)},
+    'sa_group': {'fv2p_sa_group': (_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                   _I, _I, _I, _F, _F, _I, _I, _P)},
 }
 
 launch_counts = {name: 0 for name in KERNELS}
@@ -102,10 +103,10 @@ def library(name):
         lib = ctypes.CDLL(str(library_path(name)))
         lib.fv2p_error_string.argtypes = [ctypes.c_int]
         lib.fv2p_error_string.restype = ctypes.c_char_p
-        fn_name, argtypes = SIGNATURES[name]
-        fn = getattr(lib, fn_name)
-        fn.argtypes = list(argtypes)
-        fn.restype = ctypes.c_int
+        for fn_name, argtypes in SIGNATURES[name].items():
+            fn = getattr(lib, fn_name)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
         _libs[name] = lib
     return lib
 
@@ -124,6 +125,12 @@ def stream_handle(device):
 def require(cond, msg):
     if not cond:
         raise ValueError(msg)
+
+
+def aligned(t, nbytes=16):
+    """t itself, or a copy whose first element lies on an nbytes boundary
+    (a view into a larger tensor may start anywhere)."""
+    return t if t.data_ptr() % nbytes == 0 else t.clone()
 
 
 def check_tensor(t, name, dtype, shape=None):

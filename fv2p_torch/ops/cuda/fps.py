@@ -6,13 +6,17 @@ CUDA kernel: ``ops/csrc/fps.cu``; it replaces the Pallas kernel
 distance, the lowest index winning ties; invalid points never win. When
 fewer points than picks are valid, later picks repeat selected points (the
 caller adds the wraparound padding).
+
+The kernel spreads one scan over a thread-block cluster, so it needs a card
+of compute capability 9.0 or later (H100); on an older card ``fps_cuda``
+raises ``ValueError`` before it launches anything.
 """
 import torch
 
 from . import check_launch, check_tensor, launch_counts, library, require, stream_handle
 
 _BIG = 1e10
-# 18 points per thread of one 1024-thread block, coordinates in shared memory
+# every block of the cluster keeps the scan's coordinates in shared memory
 MAX_POINTS = 18 * 1024
 
 
@@ -37,20 +41,34 @@ def fps_plain(points, valid, num_samples):
     return out
 
 
-def fps_cuda(points, valid, num_samples):
+def _launch(entry, points, valid, num_samples):
     b, n, _ = points.shape
     check_tensor(points, 'points', torch.float32, (b, n, 3))
     check_tensor(valid, 'valid', torch.bool, (b, n))
     require(n <= MAX_POINTS, f'fps kernel takes at most {MAX_POINTS} points')
+    require(torch.cuda.get_device_capability(points.device) >= (9, 0),
+            'fps kernel needs thread-block clusters (compute capability 9.0)')
     x, y, z = (points[..., i].contiguous() for i in range(3))
     out = torch.empty((b, num_samples), dtype=torch.int32, device=points.device)
     lib = library('fps')
-    code = lib.fv2p_fps(x.data_ptr(), y.data_ptr(), z.data_ptr(),
-                        valid.data_ptr(), out.data_ptr(), b, n, num_samples,
-                        stream_handle(points.device))
+    code = getattr(lib, entry)(x.data_ptr(), y.data_ptr(), z.data_ptr(),
+                               valid.data_ptr(), out.data_ptr(), b, n,
+                               num_samples, stream_handle(points.device))
     check_launch('fps', lib, code)
+    return out
+
+
+def fps_cuda(points, valid, num_samples):
+    out = _launch('fv2p_fps', points, valid, num_samples)
     launch_counts['fps'] += 1
     return out
+
+
+def fps_chain_floor_cuda(points, valid, num_samples):
+    """The kernel's chain of cluster-wide exchanges without its distance
+    work, for timing only: the indices it returns mean nothing, and it is
+    not a launch of the kernel."""
+    return _launch('fv2p_fps_chain', points, valid, num_samples)
 
 
 def fps(points, valid, num_samples):

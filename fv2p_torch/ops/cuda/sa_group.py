@@ -11,7 +11,8 @@ the output (R, G, 2H) is radius-0 channels | radius-1 channels, in bf16.
 import torch
 
 from ..pointops import first_k_hits
-from . import check_launch, check_tensor, launch_counts, library, require, stream_handle
+from . import (aligned, check_launch, check_tensor, launch_counts, library, require,
+               stream_handle)
 
 HIDDEN = 64
 MAX_NSAMPLE = 32
@@ -64,6 +65,8 @@ def sa_group_pool_cuda(centers, xyz, valid, z, cw, w2, b1, b2, radii,
     require(p <= 8192, 'at most 8192 pooled points per RoI')
     out = torch.empty((r, g, 2 * h), dtype=torch.bfloat16,
                       device=centers.device)
+    # the kernel copies rows of these three in 16-byte pieces
+    z, cw, w2 = aligned(z), aligned(cw), aligned(w2)
     lib = library('sa_group')
     code = lib.fv2p_sa_group(
         centers.data_ptr(), xyz.data_ptr(), valid.data_ptr(), z.data_ptr(),

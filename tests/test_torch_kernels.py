@@ -30,8 +30,8 @@ from fv2p_tpu.utils import iou3d as jax_iou3d
 
 from fv2p_torch.models.roi_heads.iouguided_roi_head import _SAModuleMSG
 from fv2p_torch.ops import pointops
-from fv2p_torch.ops.cuda import launch_counts, reset_launch_counts
-from fv2p_torch.ops.cuda.fps import fps, fps_plain
+from fv2p_torch.ops.cuda import aligned, launch_counts, reset_launch_counts
+from fv2p_torch.ops.cuda.fps import fps, fps_chain_floor_cuda, fps_cuda, fps_plain
 from fv2p_torch.ops.cuda.rotated_iou import overlap_matrix_plain
 from fv2p_torch.ops.cuda.sa_group import sa_group_pool_plain
 from fv2p_torch.ops.cuda.three_nn import three_nn_plain
@@ -154,6 +154,39 @@ def test_b2_batch_fps_wraparound_matches_jax():
     np.testing.assert_array_equal(got[0, 10:20].numpy(), got[0, :10].numpy())
 
 
+def _fps_corner(case):
+    rng = np.random.RandomState(11)
+    if case == 'ties':                       # every point five times, shuffled
+        pts = np.repeat(rng.rand(2, 40, 3) * 10, 5, axis=1)
+        pts = pts[:, rng.permutation(200)]
+        return pts, np.ones((2, 200), bool), 100
+    if case == 'all_equal':
+        return np.full((2, 96, 3), 1.5), np.ones((2, 96), bool), 16
+    pts = rng.rand(2, 120, 3) * 30           # fewer valid points than picks
+    valid = np.zeros((2, 120), bool)
+    valid[0, 3:10] = True
+    valid[1, ::17] = True
+    return pts, valid, 48
+
+
+@pytest.mark.parametrize('case', ['ties', 'all_equal', 'fewer_valid_than_picks'])
+def test_b2_fps_corner_cases_match_pallas(case):
+    """The corners the card holds the CUDA kernel to (chip_smoke.py): the
+    lowest index wins a tie, and once every valid point is taken the picks
+    repeat as the Pallas kernel's do."""
+    pts, valid, k = _fps_corner(case)
+    pts = pts.astype(np.float32)
+    ref = np.asarray(fps_pallas(jnp.asarray(pts), jnp.asarray(valid), k,
+                                interpret=True))
+    got = fps_plain(t(pts), t(valid), k).numpy()
+    np.testing.assert_array_equal(got, ref)
+    if case == 'all_equal':
+        assert (got == 0).all()
+    if case == 'fewer_valid_than_picks':
+        assert valid[np.arange(2)[:, None], got].all()    # only valid points
+        assert len(set(got[0])) == 7
+
+
 def test_cpu_dispatch_takes_plain_version():
     """A CPU tensor runs the plain version and launches nothing."""
     reset_launch_counts()
@@ -161,6 +194,27 @@ def test_cpu_dispatch_takes_plain_version():
     out = fps(pts, torch.ones(1, 50, dtype=torch.bool), 8)
     assert out.shape == (1, 8) and out.dtype == torch.int32
     assert all(v == 0 for v in launch_counts.values())
+
+
+@pytest.mark.parametrize('entry', [fps_cuda, fps_chain_floor_cuda])
+def test_b2_cuda_entry_points_refuse_cpu_tensors(entry):
+    """The kernel's entry points never fall back: a CPU tensor is an error
+    there (only the dispatching ``fps`` takes the plain version)."""
+    reset_launch_counts()
+    with pytest.raises(ValueError, match='CUDA tensor'):
+        entry(torch.rand(1, 50, 3), torch.ones(1, 50, dtype=torch.bool), 8)
+    assert launch_counts['fps'] == 0
+
+
+def test_aligned_copies_only_offset_views():
+    """The SA-group kernel copies 16-byte pieces: a view that starts off a
+    16-byte boundary is copied, an aligned tensor is passed through."""
+    base = torch.arange(64, dtype=torch.bfloat16)
+    assert aligned(base) is base
+    view = base[1:33]
+    assert view.data_ptr() % 16 != 0
+    copy = aligned(view)
+    assert copy.data_ptr() % 16 == 0 and torch.equal(copy, view)
 
 
 # ---------------------------------------------------------------------- B3
@@ -263,6 +317,52 @@ def test_b4_sa_group_matches_pallas():
     empty = torch.relu(torch.einsum('ik,ikj->ij', h1, t(w2).to(torch.bfloat16)
                                     .float()) + t(b2)).reshape(-1)
     assert_bf16_close(got[:, -1].reshape(r, -1)[0:1], empty[None].numpy())
+
+
+@pytest.mark.parametrize('case,in_small,in_large_only', [
+    ('nsample', 16, 16), ('nsample_plus_1', 17, 16), ('empty', 0, 0)])
+def test_b4_sa_group_ball_counts_match_pallas(case, in_small, in_large_only):
+    """Ball counts of exactly nsample, nsample + 1 and 0 for both radii
+    (16 and 32, 17 and 33, none), with b2 > 0 so that a slot wrongly filled
+    with zeros, which pools relu(b2), would show. Points sit 0.4 m and 1.2 m
+    from the centers, clear of the ball boundaries at 0.8 and 1.6 m."""
+    rng = np.random.RandomState(5)
+    r, p, g, h = 3, 64, 27, 64
+    n_in = in_small + in_large_only
+    xyz = np.full((r, p, 3), 100.0, np.float32)
+    for i in range(r):
+        v = rng.randn(n_in, 3)
+        v /= np.linalg.norm(v, axis=1, keepdims=True)
+        v *= np.r_[np.full(in_small, 0.4), np.full(in_large_only, 1.2)][:, None]
+        xyz[i, np.sort(rng.permutation(p)[:n_in])] = v[rng.permutation(n_in)]
+    valid = np.ones((r, p), bool)
+    centers = (rng.randn(r, g, 3) * 1e-3).astype(np.float32)
+    centers[:, -6:] = -50.0                            # empty balls
+    d2 = ((centers[:, :, None, :] - xyz[:, None, :, :]) ** 2).sum(-1)
+    for rad, ns, want in zip(RADII, NSAMPLES, (in_small, n_in)):
+        assert ((d2 < rad * rad).sum(-1)[:, :-6] == want).all()
+        assert want in (0, ns, ns + 1)
+    z = rng.randn(2, r, p, h).astype(np.float32)
+    cw = rng.randn(2, r, g, h).astype(np.float32)
+    w2 = (rng.randn(2, h, h) / 8).astype(np.float32)
+    b1 = rng.randn(2, h).astype(np.float32) * 0.5
+    b2 = (0.5 + rng.rand(2, h)).astype(np.float32)
+    pad = 128 - h
+    ref = jax_sa_fused(
+        jnp.asarray(centers), jnp.asarray(xyz), jnp.asarray(valid),
+        [jnp.pad(jnp.asarray(z[i]), ((0, 0), (0, 0), (0, pad))) for i in range(2)],
+        [jnp.pad(jnp.asarray(cw[i]), ((0, 0), (0, 0), (0, pad))) for i in range(2)],
+        [jnp.pad(jnp.asarray(w2[i]), ((0, pad), (0, pad))) for i in range(2)],
+        [jnp.pad(jnp.asarray(b1[i]), (0, pad))[None] for i in range(2)],
+        [jnp.pad(jnp.asarray(b2[i]), (0, pad))[None] for i in range(2)],
+        RADII, NSAMPLES, interpret=True)
+    got = sa_group_pool_plain(
+        t(centers), t(xyz), t(valid), t(z).to(torch.bfloat16), t(cw),
+        t(w2).to(torch.bfloat16), t(b1), t(b2), RADII, NSAMPLES)
+    assert_bf16_close(got, ref)
+    # the pooled value is not relu(b2) everywhere: the slots count
+    assert (np.abs(got.float().numpy() - np.tile(b2.reshape(-1), (r, g, 1)))
+            > 0.05).mean() > 0.5
 
 
 def test_b4_sa_module_fused_path_matches_jax(monkeypatch):
