@@ -12,18 +12,22 @@ rulebooks, 18000 raw points per scan. Then it
   * checks that each kernel's launch counter moved during that forward;
   * replays every kernel call the forward made, kernel against its plain
     PyTorch version on the same card tensors (B2/B3 indices identical, B3
-    squared distances within rtol 1e-6 + atol 1e-6, B1 areas within 1e-4
-    and NMS keep lists identical, B4 within 2^-7 of max(|ref|, 2^-3)
-    element by element: a sound kernel differs by at most one bf16 ulp);
+    squared distances within rtol 1e-6 + atol 1e-6, B1 IoU and areas within
+    1e-4 and exactly 0.0 where the kernel's cull applies, NMS keep lists
+    identical, B4 within 2^-7 of max(|ref|, 2^-3) element by element: a
+    sound kernel differs by at most one bf16 ulp);
   * runs the forward once more in f32 (no TF32) with the kernels and once
     with the plain versions, and compares the detections;
-  * holds the FPS and SA-group kernels against their plain versions on small
-    seeded corner cases (rows without valid points, ties, ball counts at and
-    around nsample, ragged sizes), with the same comparisons;
+  * holds all four kernels against their plain versions on small seeded
+    corner cases (rows without valid points, ties, ball counts at and around
+    nsample, unsorted sources, touching and degenerate boxes, ragged sizes),
+    with the same comparisons;
   * times each kernel's calls of one forward with CUDA events beside its
     plain version, the least time the card could take for the same work,
-    (B3) torch.cdist + topk as a library yardstick and (B2) the kernel's
-    chain of cluster exchanges without its distance work; and times the whole
+    (B3) torch.cdist + topk as a library yardstick and the least share of
+    tiles an exact tile-pruned search must visit, (B2) the kernel's chain of
+    cluster exchanges without its distance work, (B1) the share of pairs that
+    survive the cull and the kernels one IoU call queues; and times the whole
     forward on the batch already on the card (median of 20), per module, and
     the device's busy share in one profiled pass; and counts the calls in
     one forward that make the host wait for the card, by source line.
@@ -52,7 +56,9 @@ BATCH, N_CAP, N_FILL, N_POINTS, SEED = 4, 16000, 14000, 18000, 0
 HBM_BYTES_S, F32_OPS_S, BF16_OPS_S = 3.35e12, 67e12, 989e12
 # Sutherland-Hodgman over 4 edges x 8 slots + the shoelace sum (clip_area)
 CLIP_OPS_PER_PAIR = 460
-B1_ATOL = 1e-4
+B1_ATOL = 1e-4              # m^2 of area; of max(1, |IoU|) for the IoU
+# the cull of rotated_iou.cu, repeated here in tensor code
+B1_CULL_REL, B1_CULL_ABS, B1_MIN_EDGE_REL = 1e-3, 1e-5, 1e-4
 # B4 rounds its f32 sums to bf16 (8 significant bits) as the plain version
 # does; another order of summation moves an output by one ulp at most, and
 # one ulp of v is at most 2^-7 |v|. Below 2^-3 the allowance stays 2^-10.
@@ -60,6 +66,7 @@ B4_REL, B4_FLOOR = 2.0 ** -7, 2.0 ** -3
 B3_DIST_TOL = 1e-6          # rtol and atol (m^2): both sides round alike
 F32_ATOL = 1e-4
 FORWARD_REPS = 20
+KEPT_ROWS = 100             # the kept buffer of the proposal NMS (post_max)
 
 
 def log(*a):
@@ -89,61 +96,86 @@ def time_events(fn, reps, warmup=1):
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, reps=5):
+    """Mean ms the card is busy in one fn(): the kernels' and copies' own
+    durations under torch.profiler. Unlike events around the calls, this
+    leaves out the gaps in which the card waits for the host to queue, which
+    decide the event time of a few short launches."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    sync()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        sync()
+    busy_us = sum(e.device_time for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA)
+    return busy_us / 1e3 / reps
+
+
 def clone_args(args):
     return tuple(a.clone() if torch.is_tensor(a) else a for a in args)
 
 
 class Kernel:
-    """One kernel: its wrapper module, entry points, the TPU kernel it
-    replaces, and the calls the main path made to it."""
+    """One kernel: its wrapper module, its entry points ({CUDA function:
+    plain function}), the TPU kernel it replaces, and the calls the main
+    path made to it, each a pair (CUDA function, arguments)."""
 
-    def __init__(self, name, module, cuda_fn, plain_fn, source, replaces):
-        self.name, self.module = name, module
-        self.cuda_fn, self.plain_fn = cuda_fn, plain_fn
+    def __init__(self, name, module, entries, source, replaces):
+        self.name, self.module, self.entries = name, module, entries
         self.source, self.replaces = source, replaces
         self.calls = []
 
-    def launch(self, args):
-        return getattr(self.module, self.cuda_fn)(*args)
+    def launch(self, call):
+        fn, args = call
+        return getattr(self.module, fn)(*args)
 
-    def plain(self, args):
-        return getattr(self.module, self.plain_fn)(*args)
+    def plain(self, call):
+        fn, args = call
+        return getattr(self.module, self.entries[fn])(*args)
 
 
 @contextlib.contextmanager
 def patched(kernels, make):
-    """Temporarily replace each kernel's CUDA entry point by make(k, orig)."""
-    saved = [(k, getattr(k.module, k.cuda_fn)) for k in kernels]
-    for k, orig in saved:
-        setattr(k.module, k.cuda_fn, make(k, orig))
+    """Temporarily replace each CUDA entry point by make(k, name, orig)."""
+    saved = [(k, fn, getattr(k.module, fn)) for k in kernels for fn in k.entries]
+    for k, fn, orig in saved:
+        setattr(k.module, fn, make(k, fn, orig))
     try:
         yield
     finally:
-        for k, orig in saved:
-            setattr(k.module, k.cuda_fn, orig)
+        for k, fn, orig in saved:
+            setattr(k.module, fn, orig)
 
 
-def capturing(k, orig):
+def capturing(k, name, orig):
     def fn(*args):
-        k.calls.append(clone_args(args))
+        k.calls.append((name, clone_args(args)))
         return orig(*args)
     return fn
 
 
-def plain_route(k, _orig):
-    return lambda *args: k.plain(args)
+def plain_route(k, name, _orig):
+    return lambda *args: k.plain((name, args))
 
 
 # ----------------------------------------------------------------- bounds
 
-def bound_rotated_iou(args):
-    n, m = args[0].shape[0], args[1].shape[0]
-    nbytes = (n + m) * 32 + n * m * 4
-    return nbytes / HBM_BYTES_S, n * m * CLIP_OPS_PER_PAIR / F32_OPS_S
+def bound_rotated_iou(call):
+    """Every pair the function defines is clipped: all n x m, or i < j of a
+    set against itself; boxes are 28 B, corners 32 B."""
+    fn, args = call
+    n, m = args[0].shape[0], args[-1].shape[0]
+    upper = fn == 'iou_bev_upper_cuda'
+    row = 32 if fn == 'overlap_matrix_cuda' else 28
+    nbytes = (n if upper else n + m) * row + n * m * 4
+    pairs = n * (n - 1) // 2 if upper else n * m
+    return nbytes / HBM_BYTES_S, pairs * CLIP_OPS_PER_PAIR / F32_OPS_S
 
 
-def bound_fps(args):
-    pts, valid, k = args
+def bound_fps(call):
+    pts, valid, k = call[1]
     b, n, _ = pts.shape
     nbytes = b * n * 13 + b * k * 4
     # each pick: 3 sub, 3 mul, 2 add, min, compare per valid point
@@ -151,8 +183,10 @@ def bound_fps(args):
     return nbytes / HBM_BYTES_S, ops / F32_OPS_S
 
 
-def bound_three_nn(args):
-    src, valid, q = args
+def bound_three_nn(call):
+    """The function by brute force, whatever implements it: a search that
+    skips sources can come in under this."""
+    src, valid, q = call[1]
     b, n, _ = src.shape
     m = q.shape[1]
     nbytes = b * n * 13 + b * m * 12 + b * m * 3 * 8
@@ -171,7 +205,8 @@ def sa_slots(args):
     return out
 
 
-def bound_sa_group(args):
+def bound_sa_group(call):
+    args = call[1]
     centers, xyz, valid, z, cw, w2, b1, b2, _, _ = args
     r, g, _ = centers.shape
     nbytes = sum(t.numel() * t.element_size()
@@ -186,20 +221,92 @@ def bound_sa_group(args):
 
 # ------------------------------------------------------------ comparisons
 
+def b1_sets(call):
+    """(corners_a, corners_b, upper) of a rotated_iou call."""
+    from fv2p_torch.ops.cuda.rotated_iou import bev_corners_ccw
+    fn, args = call
+    if fn == 'overlap_matrix_cuda':
+        return args[0], args[1], False
+    return bev_corners_ccw(args[0]), bev_corners_ccw(args[-1]), len(args) == 1
+
+
+def b1_culled(call):
+    """(N, M) bool: the pairs that the kernel's cull declares disjoint (the
+    same test in tensor code: centers farther apart than the two radii with
+    their margins, a box with a too short edge having an infinite radius,
+    all finite)."""
+    def circle(c):
+        cen = c.mean(1)
+        rad = (c - cen[:, None]).norm(dim=-1).amax(1)
+        edge = (c.roll(-1, 1) - c).norm(dim=-1).amin(1)
+        mag = cen.abs().sum(-1)
+        return cen, mag, torch.where(edge > B1_MIN_EDGE_REL * (mag + rad), rad,
+                                     float('inf'))
+
+    ca, cb, _ = b1_sets(call)
+    (cen_a, mag_a, rad_a), (cen_b, mag_b, rad_b) = circle(ca), circle(cb)
+    d2 = ((cen_a[:, None] - cen_b[None]) ** 2).sum(-1)
+    reach = ((rad_a[:, None] + rad_b[None]) * (1 + B1_CULL_REL)
+             + B1_CULL_ABS * (mag_a[:, None] + mag_b[None]))
+    return (d2 > reach ** 2) & torch.isfinite(d2)
+
+
+def b1_survivors(call):
+    """(pairs the kernel clips, pairs the function defines)."""
+    culled = b1_culled(call)
+    n, m = culled.shape
+    if b1_sets(call)[2]:
+        return int(torch.triu(~culled, diagonal=1).sum()), n * (n - 1) // 2
+    return int((~culled).sum()), n * m
+
+
+def b3_tiles_needed(call, d3, rows):
+    """(needed, seeded, all) (query, tile) pairs of a three_nn call. A tile
+    of `rows` consecutive sources is needed if its lower bound (the query's
+    distance to the box of the tile's valid rows, at most 1e10 where the
+    tile holds an invalid row) does not exceed the query's final third-best
+    distance d3 (B, M): no exact search that skips whole tiles can visit
+    fewer. It is seeded if its bound does not exceed the third-best distance
+    within the tile of least bound, the kernel's first limit: the kernel
+    visits at most these (it tightens the limit as it goes)."""
+    src, valid, q = call[1]
+    b, n, _ = src.shape
+    tiles = -(-n // rows)
+    pad = tiles * rows - n
+    s = torch.nn.functional.pad(src, (0, 0, 0, pad)).view(b, tiles, rows, 3)
+    real = torch.arange(tiles * rows, device=src.device).view(tiles, rows) < n
+    ok = torch.nn.functional.pad(valid, (0, pad)).view(b, tiles, rows)
+    lo = torch.where(ok[..., None], s, float('inf')).amin(2)[:, None]
+    hi = torch.where(ok[..., None], s, float('-inf')).amax(2)[:, None]
+    cap = torch.where((~ok & real).any(2), 1e10, float('inf'))[:, None]
+    d = q[:, :, None] - torch.minimum(torch.maximum(q[:, :, None], lo), hi)
+    bound = torch.minimum((d[..., 0] ** 2 + d[..., 1] ** 2) + d[..., 2] ** 2, cap)
+    best = bound.argmin(-1)                                      # (B, M)
+    sample = torch.arange(b, device=src.device)[:, None]
+    offset = torch.where(ok, 0.0, 1e10).masked_fill(~real, float('inf'))
+    e = q[:, :, None] - s[sample, best]                          # (B, M, rows, 3)
+    in_best = ((e[..., 0] ** 2 + e[..., 1] ** 2) + e[..., 2] ** 2) + offset[sample, best]
+    first_limit = in_best.kthvalue(min(3, rows), dim=-1).values
+    return (int((bound <= d3[:, :, None]).sum()),
+            int((bound <= first_limit[:, :, None]).sum()), bound.numel())
+
+
 def compare(k, calls=None):
     """Kernel against plain version over every captured call (or the given
-    (label, args) cases); returns the max abs error (indices must be
+    (label, call) cases); returns the max abs error (indices must be
     identical) and the largest |plain| float output, which shows the
     comparison is not between zeros."""
     err = ref_max = 0.0
     if calls is None:
-        calls = [(f'main-path call {i}', a) for i, a in enumerate(k.calls)]
-    for label, args in calls:
-        got, ref = k.launch(args), k.plain(args)
+        calls = [(f'main-path call {i}', c) for i, c in enumerate(k.calls)]
+    for label, call in calls:
+        got, ref = k.launch(call), k.plain(call)
         sync()
         ref_f = ref[0] if k.name == 'three_nn' else ref
         if ref_f.is_floating_point() and ref_f.numel():
-            ref_max = max(ref_max, float(ref_f.float().abs().max()))
+            # (an unfilled 3-NN slot is inf on both sides)
+            finite = torch.nan_to_num(ref_f.float(), posinf=0.0)
+            ref_max = max(ref_max, float(finite.abs().max()))
         if k.name == 'fps':
             if not torch.equal(got, ref):
                 fail(f'fps kernel indices differ from the plain version ({label})')
@@ -208,12 +315,18 @@ def compare(k, calls=None):
                 fail(f'three_nn kernel indices differ from the plain version ({label})')
             if not torch.allclose(got[0], ref[0], rtol=B3_DIST_TOL, atol=B3_DIST_TOL):
                 fail(f'three_nn kernel distances differ from the plain version ({label})')
-            err = max(err, float((got[0] - ref[0]).abs().max()))
+            diff = torch.where(got[0] == ref[0], 0.0, (got[0] - ref[0]).abs())
+            err = max(err, float(diff.max()))
         elif k.name == 'rotated_iou':
-            e = float((got - ref).abs().max()) if got.numel() else 0.0
-            if e > B1_ATOL:
-                fail(f'rotated_iou areas differ by {e} > {B1_ATOL} ({label})')
-            err = max(err, e)
+            e = (float(((got - ref).abs() / ref.abs().clamp(min=1.0)).max())
+                 if got.numel() else 0.0)
+            if not e <= B1_ATOL:     # a NaN fails too
+                fail(f'rotated_iou differs by {e} of max(1, |ref|) > {B1_ATOL} '
+                     f'({label})')
+            culled = b1_culled(call)
+            if (got[culled] != 0).any() or (ref[culled] != 0).any():
+                fail(f'rotated_iou: a culled pair is not exactly 0.0 ({label})')
+            err = max(err, float((got - ref).abs().max()) if got.numel() else 0.0)
         else:
             g32, r32 = got.float(), ref.float()
             e = float(((g32 - r32).abs() / r32.abs().clamp(min=B4_FLOOR)).max())
@@ -224,23 +337,58 @@ def compare(k, calls=None):
     return err, ref_max
 
 
-def library_three_nn(args):
+def library_three_nn(call):
     """torch.cdist + topk over the same inputs (a yardstick only)."""
-    src, valid, q = args
+    src, valid, q = call[1]
     d = torch.cdist(q, src) ** 2 + torch.where(valid, 0.0, 1e10)[:, None, :]
     return torch.topk(d, 3, dim=-1, largest=False)
+
+
+def queued_kernels(fn):
+    """Kernels and copies that one call of fn() puts on the card."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()                                              # constants cached
+    sync()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        sync()
+    return sum(1 for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def iou_call_kernels(rotated_iou, calls):
+    """What one IoU call on the main path's largest box set queues: through
+    the kernel's IoU entry point, and composed of tensor code around the
+    kernel's overlap areas (corners of both sets, two area products, sum,
+    difference, clamp, division), which must give the same numbers."""
+    boxes = max((a[0] for _, a in calls), key=lambda t: t.shape[0])
+    args = (boxes, boxes)
+
+    def composed():
+        a, b = args
+        ov = rotated_iou.overlap_matrix(rotated_iou.bev_corners_ccw(a),
+                                        rotated_iou.bev_corners_ccw(b))
+        area_a, area_b = a[:, 3] * a[:, 4], b[:, 3] * b[:, 4]
+        return ov / torch.clamp(area_a[:, None] + area_b[None, :] - ov, min=1e-6)
+
+    diff = float((rotated_iou.iou_bev(*args) - composed()).abs().max())
+    if diff != 0.0:
+        fail(f'the IoU entry point differs from the composition around '
+             f'overlap_matrix by {diff}: corners or epilogue round otherwise')
+    return {'kernels_per_iou_call': queued_kernels(lambda: rotated_iou.iou_bev(*args)),
+            'kernels_per_composed_iou_call': queued_kernels(composed)}
 
 
 # ------------------------------------------------------------ corner cases
 
 def fps_corner_cases():
-    """(label, (points, valid, picks)) on the card: what a cluster-wide
-    argmax over ordered keys puts at risk."""
+    """(label, call) on the card: what a cluster-wide argmax over ordered
+    keys puts at risk."""
     rng = np.random.RandomState(SEED)
 
     def case(label, pts, valid, k):
-        return label, (torch.from_numpy(pts.astype(np.float32)).cuda(),
-                       torch.from_numpy(valid).cuda(), k)
+        return label, ('fps_cuda', (torch.from_numpy(pts.astype(np.float32)).cuda(),
+                                    torch.from_numpy(valid).cuda(), k))
 
     cases = []
     pts = rng.rand(3, 300, 3) * 50
@@ -263,8 +411,8 @@ def fps_corner_cases():
 
 
 def sa_corner_cases():
-    """(label, args of sa_group_pool_*) on the card: ball counts at and around
-    nsample, empty balls, ragged P and G, one RoI, many points per RoI."""
+    """(label, call) on the card: ball counts at and around nsample, empty
+    balls, ragged P and G, one RoI, many points per RoI."""
     rng = np.random.RandomState(SEED + 1)
     h, radii, nsamples = 64, (0.8, 1.6), (16, 32)
 
@@ -272,12 +420,12 @@ def sa_corner_cases():
         r, g, p = centers.shape[0], centers.shape[1], xyz.shape[1]
         f = lambda a, dt=torch.float32: torch.from_numpy(
             np.asarray(a, np.float32)).cuda().to(dt)
-        return label, (
+        return label, ('sa_group_pool_cuda', (
             f(centers), f(xyz), torch.from_numpy(valid).cuda(),
             f(rng.randn(2, r, p, h), torch.bfloat16), f(rng.randn(2, r, g, h)),
             f(rng.randn(2, h, h) / 8, torch.bfloat16), f(rng.randn(2, h) * 0.5),
             # b2 > 0: a slot wrongly filled with zeros would pool relu(b2)
-            f(0.5 + rng.rand(2, h)), radii, ns)
+            f(0.5 + rng.rand(2, h)), radii, ns))
 
     def unit(n):
         v = rng.randn(n, 3)
@@ -308,9 +456,114 @@ def sa_corner_cases():
     return cases
 
 
+def three_nn_corner_cases():
+    """(label, call) on the card: what skipping tiles and merging 32 lanes'
+    lists put at risk. Sources (B, N, 3), valid (B, N), queries (B, M, 3)."""
+    rng = np.random.RandomState(SEED + 2)
+
+    def case(label, src, valid, q):
+        f = lambda a: torch.from_numpy(np.asarray(a, np.float32)).cuda()
+        return label, ('three_nn_cuda', (f(src), torch.from_numpy(valid).cuda(), f(q)))
+
+    cases = []
+    src = rng.randn(4, 700, 3) * 10
+    valid = np.zeros((4, 700), bool)
+    valid[1, 300] = True                              # one valid source
+    valid[2, [5, 699]] = True                         # two
+    valid[3] = rng.rand(700) < 0.5                    # not a prefix
+    cases.append(case('0 / 1 / 2 valid sources, a valid mask with holes',
+                      src, valid, rng.randn(4, 65, 3) * 10))
+    cases.append(case('sources in random order', rng.rand(2, 5000, 3) * [70, 80, 4],
+                      rng.rand(2, 5000) < 0.9, rng.rand(2, 777, 3) * [70, 80, 4]))
+    # the same point on rows 126-130 (both sides of a tile boundary of 128
+    # rows, and of 64 and 256 with the copies at 62-66 and 254-258)
+    src = rng.randn(1, 600, 3) * 5
+    for start in (62, 126, 254):
+        src[0, start:start + 5] = src[0, start]
+    cases.append(case('equal distances across a tile boundary', src,
+                      np.ones((1, 600), bool),
+                      np.concatenate([src[:, [62, 126, 254]], rng.randn(1, 30, 3) * 5], 1)))
+    for n in (1, 2, 129):
+        cases.append(case(f'N = {n}', rng.randn(2, n, 3) * 3, np.ones((2, n), bool),
+                          rng.randn(2, 33, 3) * 3))
+    # voxel centers in key order (y, x, z), a valid prefix; queries on cell
+    # corners are equally far from up to 8 centers
+    gy, gx, gz = np.meshgrid(np.arange(40), np.arange(50), np.arange(4), indexing='ij')
+    grid = np.stack([gx, gy, gz], -1).reshape(1, -1, 3) * [0.4, 0.4, 0.5]
+    grid = grid[:, rng.rand(grid.shape[1]) < 0.7]
+    valid = np.arange(grid.shape[1])[None] < grid.shape[1] - 300
+    q = np.concatenate([rng.rand(1, 500, 3) * [20, 16, 2],
+                        (rng.randint(0, 30, (1, 500, 3)) + 0.5) * [0.4, 0.4, 0.5]], 1)
+    cases.append(case('voxel grid in key order, queries at ties', grid, valid, q))
+    cases.append(case('all sources equal', np.full((1, 300, 3), 2.5),
+                      rng.rand(1, 300) < 0.7, rng.randn(1, 7, 3)))
+    # more tile boxes than 48 KB of shared memory hold: the opt-in launch
+    n = 460000
+    cases.append(case(f'N = {n}', rng.rand(1, n, 3) * [70, 80, 4],
+                      rng.rand(1, n) < 0.9, rng.rand(1, 40, 3) * [70, 80, 4]))
+    return cases
+
+
+def rotated_iou_corner_cases():
+    """(label, call) on the card: what the cull, the upper triangle and the
+    corners computed inside the kernel put at risk."""
+    rng = np.random.RandomState(SEED + 3)
+    f = lambda a: torch.from_numpy(np.asarray(a, np.float32)).cuda()
+
+    def boxes(n, extent, max_size=5.0):
+        return np.concatenate([
+            rng.uniform(-extent, extent, (n, 2)), rng.uniform(-1, 1, (n, 1)),
+            rng.uniform(1.0, max_size, (n, 2)), rng.uniform(1.0, 2.0, (n, 1)),
+            rng.uniform(-np.pi, np.pi, (n, 1))], axis=1)
+
+    def axis_boxes(xy, size, heading=0.0):
+        out = np.zeros((len(xy), 7))
+        out[:, :2], out[:, 3:6], out[:, 6] = xy, size, heading
+        return out
+
+    cases = []
+    far = boxes(40, 2.0)
+    far[:, :2] += np.stack(np.meshgrid(np.arange(8), np.arange(5)), -1).reshape(-1, 2) * 20.0
+    cases.append(('well separated boxes', ('iou_bev_cuda', (f(far), f(far[::-1].copy())))))
+    lattice = np.stack(np.meshgrid(np.arange(6.0), np.arange(6.0)), -1).reshape(-1, 2)
+    unit = axis_boxes(lattice, 1.0)                   # share edges and corners
+    diamonds = axis_boxes(lattice * np.sqrt(2.0), 1.0, np.pi / 4)   # touch at corners
+    cases.append(('boxes touching along edges and at corners',
+                  ('iou_bev_cuda', (f(unit), f(np.concatenate([unit, diamonds]))))))
+    cases.append(('touching boxes, upper triangle',
+                  ('iou_bev_upper_cuda', (f(np.concatenate([diamonds, unit])),))))
+    nested = boxes(30, 3.0)
+    inner = nested.copy()
+    inner[:, 3:5] *= 0.5
+    cases.append(('identical and nested boxes',
+                  ('iou_bev_cuda', (f(np.concatenate([nested, inner])), f(nested)))))
+    zeros = boxes(70, 6.0)
+    zeros[::7] = 0.0                                  # the NMS kept buffer's rows
+    zeros[3::7, 3:6] = 0.0                            # a point elsewhere
+    zeros[5::7, 4] = 0.0                              # a segment
+    cases.append(('boxes of size 0', ('iou_bev_cuda', (f(boxes(50, 6.0)), f(zeros)))))
+    cases.append(('boxes of size 0, upper triangle', ('iou_bev_upper_cuda', (f(zeros),))))
+    for n, m in ((1, 1), (33, 65), (100, 31)):
+        cases.append((f'N = {n}, M = {m}', ('iou_bev_cuda', (f(boxes(n, 8.0)), f(boxes(m, 8.0))))))
+    for n in (1, 33, 70):
+        cases.append((f'upper triangle, N = {n}', ('iou_bev_upper_cuda', (f(boxes(n, 8.0)),))))
+    shifted = boxes(80, 10.0)
+    shifted[:, :2] += (8000.0, -6000.0)               # coarse coordinates
+    shifted[:, 6] *= 30.0                             # headings of many turns
+    cases.append(('far from the origin, headings of many turns',
+                  ('iou_bev_cuda', (f(shifted), f(shifted[::-1].copy())))))
+    from fv2p_torch.ops.cuda.rotated_iou import bev_corners_ccw
+    ca, cb = bev_corners_ccw(f(boxes(45, 6.0))), bev_corners_ccw(f(boxes(77, 6.0)))
+    cases.append(('areas from corners, N = 45, M = 77',
+                  ('overlap_matrix_cuda', (ca.contiguous(), cb.contiguous()))))
+    return cases
+
+
 def corner_phase(by_name):
     """Kernel against plain on the corner cases; fails the run on a mismatch."""
-    for name, cases in (('fps', fps_corner_cases()), ('sa_group', sa_corner_cases())):
+    for name, cases in (('fps', fps_corner_cases()), ('sa_group', sa_corner_cases()),
+                        ('three_nn', three_nn_corner_cases()),
+                        ('rotated_iou', rotated_iou_corner_cases())):
         err, ref_max = compare(by_name[name], cases)
         log(f'# {name}: {len(cases)} corner cases agree with the plain version '
             f'(max abs error {err}, largest |plain output| {ref_max})')
@@ -475,15 +728,18 @@ def main():
     log(f'# built {sorted(built)} in {record["build_s"]:.1f} s')
 
     kernels = [
-        Kernel('rotated_iou', rotated_iou, 'overlap_matrix_cuda',
-               'overlap_matrix_plain', 'fv2p_torch/ops/csrc/rotated_iou.cu',
+        Kernel('rotated_iou', rotated_iou,
+               {'iou_bev_cuda': 'iou_bev_plain',
+                'iou_bev_upper_cuda': 'iou_bev_upper_plain',
+                'overlap_matrix_cuda': 'overlap_matrix_plain'},
+               'fv2p_torch/ops/csrc/rotated_iou.cu',
                'fv2p_tpu/ops/pallas/rotated_iou.py:125'),
-        Kernel('fps', fps, 'fps_cuda', 'fps_plain', 'fv2p_torch/ops/csrc/fps.cu',
+        Kernel('fps', fps, {'fps_cuda': 'fps_plain'}, 'fv2p_torch/ops/csrc/fps.cu',
                'fv2p_tpu/ops/pallas/fps.py:89'),
-        Kernel('three_nn', three_nn, 'three_nn_cuda', 'three_nn_plain',
+        Kernel('three_nn', three_nn, {'three_nn_cuda': 'three_nn_plain'},
                'fv2p_torch/ops/csrc/three_nn.cu',
                'fv2p_tpu/ops/pallas/three_nn.py:124'),
-        Kernel('sa_group', sa_group, 'sa_group_pool_cuda', 'sa_group_pool_plain',
+        Kernel('sa_group', sa_group, {'sa_group_pool_cuda': 'sa_group_pool_plain'},
                'fv2p_torch/ops/csrc/sa_group.cu',
                'fv2p_tpu/ops/pallas/sa_group.py:153'),
     ]
@@ -520,11 +776,38 @@ def main():
             fail(f'kernel {k.name} was not launched on the main path')
         if launches[k.name] != len(k.calls):
             fail(f'{k.name}: {launches[k.name]} launches, {len(k.calls)} calls')
+    # one FPS, one 3-NN per decoder level (a level that two blocks read is
+    # interpolated once), one SA group per IoU-alignment pass; each scan's
+    # proposal NMS and final NMS take at least one IoU call
+    decoder = model.post_pfe
+    want = {'fps': 1, 'sa_group': 2, 'three_nn': len(
+        {decoder.model_cfg.INIT_BLOCK.SOURCE, *decoder.sources})}
+    for name, n in want.items():
+        if launches[name] != n:
+            fail(f'{name}: {launches[name]} launches on the main path, expected {n}')
+    if launches['rotated_iou'] < 2 * BATCH:
+        fail(f'rotated_iou: {launches["rotated_iou"]} launches, expected at '
+             f'least {2 * BATCH}')
     n_valid = check_outputs(out, post)
     log(f'# bf16 forward: {n_valid} valid detections over {BATCH} scans')
 
     # 5. each kernel against its plain version on the main path's inputs
     compared = {k.name: compare(k) for k in kernels}
+    # B1's other two entry points on the main path's boxes: a proposal block
+    # against its first boxes, as blocked NMS checks a block against the kept
+    # buffer (a scan whose first block fills the buffer never makes that
+    # call), as IoU and as plain intersection areas of the same corners
+    b1 = by_name['rotated_iou']
+    cross = [('iou_bev_cuda', (c[1][0], c[1][0][:KEPT_ROWS].contiguous()))
+             for c in b1.calls if c[1][0].shape[0] > KEPT_ROWS]
+    cross += [('overlap_matrix_cuda', tuple(x.contiguous() for x in b1_sets(c)[:2]))
+              for c in cross]
+    record['b1_cross_max_abs_err'], record['b1_cross_ref_max'] = compare(
+        b1, [(f'block against its first {KEPT_ROWS} boxes, {c[0]}', c) for c in cross])
+    log(f'# rotated_iou: {len(cross)} cross checks (IoU, and areas from corners) '
+        f'on the main path\'s boxes agree with the plain version (max abs error '
+        f'{record["b1_cross_max_abs_err"]}, largest |plain output| '
+        f'{record["b1_cross_ref_max"]})')
     errs = {name: c[0] for name, c in compared.items()}
     record['kernel_ref_max_abs'] = {name: c[1] for name, c in compared.items()}
     log(f'# kernel vs plain max abs error: {errs}; largest |plain output|: '
@@ -569,10 +852,13 @@ def main():
     del model32, out_k, out_p
     torch.cuda.empty_cache()
 
-    # 7. FPS and SA group on the corner cases their designs put at risk
+    # 7. every kernel on the corner cases its design puts at risk
     corner_phase(by_name)
 
-    # 8. times: each kernel's calls of one forward, then the whole forward
+    # 8. times: each kernel's calls of one forward, then the whole forward.
+    # Nothing before the timed forwards runs under torch.profiler: once the
+    # profiler has been on, every later launch of the process costs the host
+    # more, and the forward is host-bound for a quarter of its time.
     rows = []
     for k in kernels:
         ms = time_events(lambda: [k.launch(a) for a in k.calls],
@@ -597,10 +883,28 @@ def main():
             # the K-1 cluster exchanges alone: what the chain of picks costs
             # with no distance work, beside the rate bound above
             rows[-1]['chain_floor_ms'] = time_events(
-                lambda: [fps.fps_chain_floor_cuda(*a) for a in k.calls], reps=3)
+                lambda: [fps.fps_chain_floor_cuda(*a) for _, a in k.calls], reps=3)
             log(f'# fps chain floor (exchanges only): '
                 f'{rows[-1]["chain_floor_ms"]:.3f} ms')
-        k.calls.clear()
+        if k.name == 'three_nn':
+            tile_rows = kcuda.library('three_nn').fv2p_three_nn_tile_rows()
+            counts = [b3_tiles_needed(c, k.launch(c)[0][..., 2], tile_rows)
+                      for c in k.calls]
+            needed, seeded, total = (sum(x) for x in zip(*counts))
+            valid_sources = sum(int(c[1][1].sum()) for c in k.calls)
+            all_sources = sum(c[1][1].numel() for c in k.calls)
+            rows[-1].update(tiles_needed_share=needed / total,
+                            tiles_seeded_share=seeded / total, tile_rows=tile_rows,
+                            valid_sources=valid_sources, source_rows=all_sources)
+            log(f'# three_nn: {valid_sources} valid of {all_sources} source rows '
+                f'over {BATCH} scans; tiles of {tile_rows} rows an exact '
+                f'tile-pruned search must visit: {needed / total:.4f} of all; '
+                f'the kernel visits at most {seeded / total:.4f}')
+        if k.name == 'rotated_iou':
+            live, pairs = (sum(x) for x in zip(*(b1_survivors(c) for c in k.calls)))
+            rows[-1].update(surviving_pair_share=live / pairs, pairs=pairs)
+            log(f'# rotated_iou: {live} of {pairs} pairs survive the cull '
+                f'({live / pairs:.4f})')
 
     timed_forwards(model, batch, 2)                      # warm-up
     fwd = np.array(timed_forwards(model, batch, FORWARD_REPS))
@@ -608,6 +912,18 @@ def main():
     per_module, _ = module_times(model, batch)
     prof = profiled_forward(model, batch)
     n_syncs, sync_sites = host_syncs(model, batch)
+    # each kernel's calls once more under the profiler: the card's own time
+    for k, row in zip(kernels, rows):
+        row['device_ms'] = device_ms(lambda: [k.launch(a) for a in k.calls],
+                                     reps=2 if k.name == 'fps' else 5)
+        if k.name == 'rotated_iou':
+            row.update(iou_call_kernels(rotated_iou, k.calls))
+            log(f'# rotated_iou: one IoU call queues {row["kernels_per_iou_call"]} '
+                f'kernel(s), {row["kernels_per_composed_iou_call"]} when corners, '
+                f'areas and division are tensor code around overlap_matrix')
+        k.calls.clear()
+    log('# card busy in each kernel\'s calls of one forward (ms): '
+        f'{ {row["name"]: round(row["device_ms"], 4) for row in rows} }')
     torch.cuda.reset_peak_memory_stats()
     forward(model, batch)
     sync()

@@ -84,9 +84,17 @@ class ResidualVoxelToPointDecoder(nn.Module):
         ms = batch_dict['multi_scale_3d_features']
         strides = batch_dict['multi_scale_3d_strides']
 
+        interpolated = {}
+
         def interp(src):
-            return _interpolate_level(ms[src], strides[src], self.voxel_size,
-                                      self.point_cloud_range, keypoints)
+            """A level's features on the keypoints, computed once: the
+            published config names one level both as INIT_BLOCK.SOURCE and
+            as the first of FEATURES_SOURCE."""
+            if src not in interpolated:
+                interpolated[src] = _interpolate_level(
+                    ms[src], strides[src], self.voxel_size,
+                    self.point_cloud_range, keypoints)
+            return interpolated[src]
 
         feats = interp(self.model_cfg.INIT_BLOCK.SOURCE)
         for src in self.sources:

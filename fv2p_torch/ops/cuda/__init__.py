@@ -32,12 +32,15 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points of each library and their argument types (pointers, ints,
-# the stream last); every entry point returns cudaGetLastError() as an int.
+# the stream last); an entry point that launches returns cudaGetLastError()
+# as an int, fv2p_three_nn_tile_rows a constant of the build.
 _FPS_ARGS = (_P, _P, _P, _P, _P, _I, _I, _I, _P)
 SIGNATURES = {
-    'rotated_iou': {'fv2p_overlap_matrix': (_P, _P, _P, _I, _I, _P)},
+    'rotated_iou': {'fv2p_overlap_matrix': (_P, _P, _P, _I, _I, _P),
+                    'fv2p_iou_bev': (_P, _P, _P, _I, _I, _I, _P)},
     'fps': {'fv2p_fps': _FPS_ARGS, 'fv2p_fps_chain': _FPS_ARGS},
-    'three_nn': {'fv2p_three_nn': (_P, _P, _P, _P, _P, _I, _I, _I, _P)},
+    'three_nn': {'fv2p_three_nn': (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+                 'fv2p_three_nn_tile_rows': ()},
     'sa_group': {'fv2p_sa_group': (_P, _P, _P, _P, _P, _P, _P, _P, _P,
                                    _I, _I, _I, _F, _F, _I, _I, _P)},
 }
@@ -65,34 +68,50 @@ def library_path(name):
     return BUILD_DIR / f'lib{name}-{tag}.so'
 
 
-def build(names=KERNELS):
-    """Compile the named kernels that are not built yet, one nvcc process
-    per source, all started together. Returns {name: (seconds, ptxas log)}
-    for the ones compiled now; raises with the compiler output on failure."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+def compile_sources(jobs):
+    """jobs {label: (source path, library path)}: one nvcc process per
+    source, all started together. Returns {label: (seconds, ptxas log)};
+    raises with the compiler output on failure."""
     procs = {}
     t0 = time.perf_counter()
-    for name in names:
-        out = library_path(name)
-        if out.exists():
-            continue
+    for label, (src, out) in jobs.items():
+        out.parent.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(out.name + f'.{os.getpid()}.tmp')
-        cmd = [_nvcc(), *NVCC_FLAGS, '-o', str(tmp), str(CSRC / f'{name}.cu')]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       tmp, out)
+        cmd = [_nvcc(), *NVCC_FLAGS, '-o', str(tmp), str(src)]
+        procs[label] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                         stderr=subprocess.STDOUT, text=True),
+                        tmp, out)
     done = {}
     errors = []
-    for name, (proc, tmp, out) in procs.items():
+    for label, (proc, tmp, out) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
-            errors.append(f'nvcc failed for {name}.cu:\n{log}')
+            errors.append(f'nvcc failed for {label}:\n{log}')
             continue
         os.replace(tmp, out)
-        done[name] = (time.perf_counter() - t0, log)
+        done[label] = (time.perf_counter() - t0, log)
     if errors:
         raise RuntimeError('\n'.join(errors))
     return done
+
+
+def build(names=KERNELS):
+    """Compile the named kernels that are not built yet. Returns
+    {name: (seconds, ptxas log)} for the ones compiled now."""
+    return compile_sources({name: (CSRC / f'{name}.cu', library_path(name))
+                            for name in names if not library_path(name).exists()})
+
+
+def load(path, name):
+    """The shared library at path as kernel `name`, its entry points typed."""
+    lib = ctypes.CDLL(str(path))
+    lib.fv2p_error_string.argtypes = [ctypes.c_int]
+    lib.fv2p_error_string.restype = ctypes.c_char_p
+    for fn_name, argtypes in SIGNATURES[name].items():
+        fn = getattr(lib, fn_name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    return lib
 
 
 def library(name):
@@ -100,14 +119,7 @@ def library(name):
     lib = _libs.get(name)
     if lib is None:
         build([name])
-        lib = ctypes.CDLL(str(library_path(name)))
-        lib.fv2p_error_string.argtypes = [ctypes.c_int]
-        lib.fv2p_error_string.restype = ctypes.c_char_p
-        for fn_name, argtypes in SIGNATURES[name].items():
-            fn = getattr(lib, fn_name)
-            fn.argtypes = list(argtypes)
-            fn.restype = ctypes.c_int
-        _libs[name] = lib
+        lib = _libs[name] = load(library_path(name), name)
     return lib
 
 

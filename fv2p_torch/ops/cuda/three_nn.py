@@ -3,14 +3,26 @@
 CUDA kernel: ``ops/csrc/three_nn.cu``; it replaces the Pallas kernel
 ``fv2p_tpu/ops/pallas/three_nn.py:three_nn_pallas``, batched over samples.
 Elementwise f32 squared distances, invalid sources at +1e10, the three
-smallest in (distance, index) order, clamped to d >= 0 and idx in [0, N-1].
+smallest in (distance, index) order, clamped to d >= 0 and idx in [0, N-1];
+a slot that no source fills (N < 3) holds (inf, 0).
+
+The kernel is exact for any source order and valid mask, and fast where
+consecutive sources lie close together (voxel centers in key order): a small
+preparation kernel boxes every tile of consecutive sources, and the search
+kernel, one warp per query, skips each tile whose box is farther from the
+query than the third-best distance met so far. The wrapper allocates the
+scratch of both: the tile boxes and the sources repacked as float4.
 """
 import torch
 
-from . import check_launch, check_tensor, launch_counts, library, stream_handle
+from . import (check_launch, check_tensor, launch_counts, library, require,
+               stream_handle)
 
 _BIG = 1e10
 _QUERY_CHUNK = 2048      # queries per (chunk, N) distance matrix
+# the search kernel keeps 28 bytes a tile of sources in shared memory
+_MAX_SOURCES = 1 << 20
+_MAX_GRID_Y = 65535      # samples are the grid's second dimension
 
 
 def three_nn_plain(src_xyz, src_valid, query_xyz):
@@ -45,13 +57,23 @@ def three_nn_cuda(src_xyz, src_valid, query_xyz):
     check_tensor(src_xyz, 'src_xyz', torch.float32, (b, n, 3))
     check_tensor(src_valid, 'src_valid', torch.bool, (b, n))
     check_tensor(query_xyz, 'query_xyz', torch.float32, (b, m, 3))
-    out_d = torch.empty((b, m, 3), dtype=torch.float32, device=src_xyz.device)
-    out_i = torch.empty((b, m, 3), dtype=torch.int32, device=src_xyz.device)
+    require(0 < n <= _MAX_SOURCES,
+            f'1 to {_MAX_SOURCES} sources a sample, got {n}')
+    require(b <= _MAX_GRID_Y, f'at most {_MAX_GRID_Y} samples, got {b}')
+    dev = src_xyz.device
+    out_d = torch.empty((b, m, 3), dtype=torch.float32, device=dev)
+    out_i = torch.empty((b, m, 3), dtype=torch.int32, device=dev)
+    if b == 0 or m == 0:
+        return out_d, out_i
     lib = library('three_nn')
+    rows = lib.fv2p_three_nn_tile_rows()
+    tiles = (n + rows - 1) // rows
+    packed = torch.empty((b, tiles * rows, 4), dtype=torch.float32, device=dev)
+    boxes = torch.empty((b, tiles, 7), dtype=torch.float32, device=dev)
     code = lib.fv2p_three_nn(query_xyz.data_ptr(), src_xyz.data_ptr(),
-                             src_valid.data_ptr(), out_d.data_ptr(),
-                             out_i.data_ptr(), b, m, n,
-                             stream_handle(src_xyz.device))
+                             src_valid.data_ptr(), packed.data_ptr(),
+                             boxes.data_ptr(), out_d.data_ptr(),
+                             out_i.data_ptr(), b, m, n, stream_handle(dev))
     check_launch('three_nn', lib, code)
     launch_counts['three_nn'] += 1
     return out_d, out_i

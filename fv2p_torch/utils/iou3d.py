@@ -1,6 +1,7 @@
 """Rotated-box IoU + greedy NMS (counterpart of ``fv2p_tpu/utils/iou3d.py``).
 
-The overlap areas come from kernel B1 (``ops/cuda/rotated_iou.py``); the
+The IoU comes from kernel B1 (``ops/cuda/rotated_iou.py``), which for a
+set against itself computes only the pairs i < j that greedy NMS reads; the
 greedy suppression is an exact fixed-point iteration over the thresholded
 IoU matrix, blocked for long candidate lists so that it stops once
 ``post_max`` boxes are kept. The iteration runs on the device in rounds of
@@ -10,34 +11,26 @@ reads are the only waits on the device in an NMS call.
 """
 import torch
 
-from ..ops.cuda.rotated_iou import overlap_matrix
-from . import box_utils
+from ..ops.cuda.rotated_iou import bev_corners_ccw as _bev_corners_ccw
+from ..ops.cuda.rotated_iou import iou_bev, iou_bev_upper
 
 _FIXED_POINT_ROUND = 8
 
 
-def _bev_corners_ccw(boxes):
-    """(N, 7) -> (N, 4, 2) BEV corners in CCW order for the clipper."""
-    return box_utils.boxes_to_corners_bev(boxes).flip(1)
-
-
 def boxes_iou_bev(boxes_a, boxes_b):
     """Rotated BEV IoU (N, M)."""
-    ov = overlap_matrix(_bev_corners_ccw(boxes_a), _bev_corners_ccw(boxes_b))
-    area_a = boxes_a[:, 3] * boxes_a[:, 4]
-    area_b = boxes_b[:, 3] * boxes_b[:, 4]
-    return ov / torch.clamp(area_a[:, None] + area_b[None, :] - ov, min=1e-6)
+    return iou_bev(boxes_a, boxes_b)
 
 
 def _greedy_by_fixed_point(overlap, valid):
     """Exact greedy suppression: keep_i = valid_i and no kept j < i overlaps
-    i. Iterating this map from all-valid reaches the greedy solution (box 0
-    is stable at once; once boxes < i are stable, box i is one step later),
-    which is the map's only fixed point, so a step that changes nothing
-    ends the search. Returns (keep, number kept)."""
+    i; ``overlap`` (n, n) is True only above the diagonal. Iterating this map
+    from all-valid reaches the greedy solution (box 0 is stable at once; once
+    boxes < i are stable, box i is one step later), which is the map's only
+    fixed point, so a step that changes nothing ends the search. Returns
+    (keep, number kept)."""
     n = overlap.shape[0]
-    idx = torch.arange(n, device=overlap.device)
-    ov_lower = (overlap & (idx[:, None] < idx[None, :])).to(torch.float32)
+    ov_lower = overlap.to(torch.float32)
     keep = valid
     for _ in range(0, n + 1, _FIXED_POINT_ROUND):    # n + 1 steps suffice
         for _ in range(_FIXED_POINT_ROUND):
@@ -50,7 +43,7 @@ def _greedy_by_fixed_point(overlap, valid):
 
 
 def _nms_keep_flags(boxes_s, valid, thresh):
-    overlap = boxes_iou_bev(boxes_s, boxes_s) > thresh
+    overlap = iou_bev_upper(boxes_s) > thresh
     overlap = overlap & valid[None, :] & valid[:, None]
     return _greedy_by_fixed_point(overlap, valid)
 
@@ -71,17 +64,15 @@ def _nms_keep_flags_blocked(boxes_s, valid, thresh, post_max, block=1024):
     kept_cnt = 0
     keep_flags = torch.zeros(n_blocks * block, dtype=torch.bool,
                              device=boxes_s.device)
-    kept_slots = torch.arange(post_max, device=boxes_s.device)
     for bi in range(n_blocks):
         if kept_cnt >= post_max:
             break
         blk = boxes_p[bi * block:(bi + 1) * block]
-        blk_valid = valid_p[bi * block:(bi + 1) * block]
-        kept_mask = kept_slots < kept_cnt
-        sup_x = ((boxes_iou_bev(blk, kept_boxes[:post_max]) > thresh)
-                 & kept_mask[None, :]).any(dim=1)
-        blk_ok = blk_valid & ~sup_x
-        ov = boxes_iou_bev(blk, blk) > thresh
+        blk_ok = valid_p[bi * block:(bi + 1) * block]
+        if kept_cnt:
+            sup_x = (boxes_iou_bev(blk, kept_boxes[:kept_cnt]) > thresh).any(dim=1)
+            blk_ok = blk_ok & ~sup_x
+        ov = iou_bev_upper(blk) > thresh
         ov = ov & blk_ok[None, :] & blk_ok[:, None]
         blk_keep, blk_kept = _greedy_by_fixed_point(ov, blk_ok)
 

@@ -32,9 +32,11 @@ from fv2p_torch.models.roi_heads.iouguided_roi_head import _SAModuleMSG
 from fv2p_torch.ops import pointops
 from fv2p_torch.ops.cuda import aligned, launch_counts, reset_launch_counts
 from fv2p_torch.ops.cuda.fps import fps, fps_chain_floor_cuda, fps_cuda, fps_plain
-from fv2p_torch.ops.cuda.rotated_iou import overlap_matrix_plain
+from fv2p_torch.ops.cuda.rotated_iou import (
+    iou_bev_cuda, iou_bev_plain, iou_bev_upper_cuda, iou_bev_upper_plain,
+    overlap_matrix_cuda, overlap_matrix_plain)
 from fv2p_torch.ops.cuda.sa_group import sa_group_pool_plain
-from fv2p_torch.ops.cuda.three_nn import three_nn_plain
+from fv2p_torch.ops.cuda.three_nn import three_nn_cuda, three_nn_plain
 from fv2p_torch.utils import iou3d
 from fv2p_torch.weights import load_flax_variables
 
@@ -78,6 +80,91 @@ def test_b1_overlap_matches_clip_and_pallas():
     assert (got > 0).mean() > 0.2                   # many real overlaps
     np.testing.assert_allclose(np.diag(got[:5, :5]), a[:5, 3] * a[:5, 4],
                                rtol=1e-4)
+
+
+def _axis_boxes(xy, size, heading=0.0):
+    out = np.zeros((len(xy), 7), np.float32)
+    out[:, :2], out[:, 3:6], out[:, 6] = xy, size, heading
+    return out
+
+
+def _b1_case(case):
+    """(boxes_a, boxes_b, expected IoU or None): the pairs the kernel's cull
+    and its upper triangle rest on."""
+    rng = np.random.RandomState(21)
+    lattice = np.stack(np.meshgrid(np.arange(5.0), np.arange(4.0)),
+                       -1).reshape(-1, 2)
+    if case == 'well_separated':          # >= 10 m apart, at most 5 m long
+        a = random_boxes(rng, 20, extent=2.0)
+        a[:, :2] += lattice * 20.0
+        b = random_boxes(rng, 20, extent=2.0)
+        b[:, :2] += lattice[::-1] * 20.0 + 10.0
+        return a, b, None
+    if case == 'touch_edges_and_corners':  # unit squares on the unit lattice
+        a = _axis_boxes(lattice, 1.0)
+        want = np.eye(len(a), dtype=np.float32)
+        return a, a, want
+    a = _axis_boxes(lattice * np.sqrt(2.0), 1.0, np.pi / 4)   # diamonds
+    return a, a, None
+
+
+@pytest.mark.parametrize('case', ['well_separated', 'touch_edges_and_corners',
+                                  'touch_corners_rotated'])
+def test_b1_disjoint_and_touching_boxes_match_pallas(case):
+    """The facts the CUDA kernel's cull rests on: boxes whose circumcircles
+    lie apart overlap by exactly 0.0, in the plain version and in the Pallas
+    kernel alike, and boxes that only touch overlap by (about) nothing."""
+    a, b, want = _b1_case(case)
+    ca = jax_iou3d._bev_corners_ccw(jnp.asarray(a))
+    cb = jax_iou3d._bev_corners_ccw(jnp.asarray(b))
+    pallas = np.asarray(jax_overlap_matrix(ca, cb))        # interpret on CPU
+    got = overlap_matrix_plain(iou3d._bev_corners_ccw(t(a)),
+                               iou3d._bev_corners_ccw(t(b))).numpy()
+    np.testing.assert_allclose(got, pallas, rtol=0, atol=1e-4)
+    dist = np.linalg.norm(a[:, None, :2] - b[None, :, :2], axis=-1)
+    reach = 0.5 * (np.hypot(a[:, 3], a[:, 4])[:, None]
+                   + np.hypot(b[:, 3], b[:, 4])[None, :])
+    apart = dist > 1.001 * reach
+    assert apart.sum() > len(a)
+    assert (got[apart] == 0.0).all() and (pallas[apart] == 0.0).all()
+    if case == 'well_separated':
+        assert apart.all()
+    else:                                  # touching pairs: no area to speak of
+        touching = ~apart & ~np.eye(len(a), dtype=bool)
+        assert touching.sum() >= len(a)
+        assert np.abs(got[touching]).max() <= 1e-4
+    if want is not None:
+        np.testing.assert_allclose(iou_bev_plain(t(a), t(b)).numpy(), want,
+                                   rtol=0, atol=1e-4)
+
+
+def test_b1_iou_epilogue_matches_jax_boxes_iou_bev():
+    """The IoU entry point's plain version (corners, areas and division as
+    the kernel does them) against the JAX package's boxes_iou_bev; the
+    port's boxes_iou_bev is that entry point."""
+    rng = np.random.RandomState(22)
+    a = random_boxes(rng, 60, extent=5.0)
+    b = random_boxes(rng, 37, extent=5.0)
+    b[:4] = a[:4]
+    ref = np.asarray(jax_iou3d.boxes_iou_bev(jnp.asarray(a), jnp.asarray(b)))
+    got = iou_bev_plain(t(a), t(b)).numpy()
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-4)
+    np.testing.assert_array_equal(iou3d.boxes_iou_bev(t(a), t(b)).numpy(), got)
+    np.testing.assert_allclose(np.diag(got[:4, :4]), 1.0, atol=1e-4)
+    assert (got > 0.05).mean() > 0.1
+
+
+@pytest.mark.parametrize('n', [1, 33, 70])
+def test_b1_upper_triangle_is_the_full_matrix_above_the_diagonal(n):
+    rng = np.random.RandomState(23 + n)
+    a = random_boxes(rng, n, extent=4.0)
+    full = iou_bev_plain(t(a), t(a)).numpy()
+    upper = iou_bev_upper_plain(t(a)).numpy()
+    i, j = np.indices((n, n))
+    np.testing.assert_array_equal(upper[i < j], full[i < j])
+    assert (upper[i >= j] == 0.0).all()
+    ref = np.asarray(jax_iou3d.boxes_iou_bev(jnp.asarray(a), jnp.asarray(a)))
+    np.testing.assert_allclose(upper[i < j], ref[i < j], rtol=0, atol=1e-4)
 
 
 @pytest.mark.parametrize('n,post_max,thresh', [(300, 50, 0.3),
@@ -206,6 +293,23 @@ def test_b2_cuda_entry_points_refuse_cpu_tensors(entry):
     assert launch_counts['fps'] == 0
 
 
+@pytest.mark.parametrize('entry,shapes', [
+    (three_nn_cuda, ((1, 50, 3), (1, 50), (1, 9, 3))),
+    (overlap_matrix_cuda, ((5, 4, 2), (6, 4, 2))),
+    (iou_bev_cuda, ((5, 7), (6, 7))),
+    (iou_bev_upper_cuda, ((5, 7),)),
+], ids=lambda v: getattr(v, '__name__', ''))
+def test_b1_b3_cuda_entry_points_refuse_cpu_tensors(entry, shapes):
+    """As for FPS: the kernels' entry points raise on a CPU tensor and count
+    no launch; only the dispatching functions take the plain version."""
+    reset_launch_counts()
+    args = [torch.ones(s, dtype=torch.bool) if len(s) == 2 and entry is three_nn_cuda
+            else torch.rand(s) for s in shapes]
+    with pytest.raises(ValueError, match='CUDA tensor'):
+        entry(*args)
+    assert all(v == 0 for v in launch_counts.values())
+
+
 def test_aligned_copies_only_offset_views():
     """The SA-group kernel copies 16-byte pieces: a view that starts off a
     16-byte boundary is copied, an aligned tensor is passed through."""
@@ -232,6 +336,78 @@ def test_b3_three_nn_matches_pallas():
     # XLA:CPU contracts the squared distance into fused multiply-adds, the
     # plain version does not: the distances may differ in the last ulp
     np.testing.assert_allclose(d[0].numpy(), np.asarray(d_ref), rtol=1e-6)
+
+
+def _b3_oracle(src, valid, q):
+    """Brute force over (f32 distance + 1e10 if invalid, index): the order
+    the plain version and the CUDA kernel promise."""
+    diff = q[:, None, :] - src[None]
+    d = (diff[..., 0] ** 2 + diff[..., 1] ** 2) + diff[..., 2] ** 2
+    d = d + np.where(valid, 0.0, 1e10).astype(np.float32)[None]
+    idx = np.argsort(d, axis=1, kind='stable')[:, :3]
+    return np.take_along_axis(d, idx, 1), idx
+
+
+def _b3_case(case):
+    rng = np.random.RandomState(31)
+    q = (rng.randn(40, 3) * 10).astype(np.float32)
+    n = {'n1': 1, 'n2': 2, 'n129': 129}.get(case, 300)
+    src = (rng.randn(n, 3) * 10).astype(np.float32)
+    valid = np.ones(n, bool)
+    if case == 'two_valid':
+        valid[:] = False
+        valid[[7, 200]] = True
+    elif case == 'none_valid':
+        valid[:] = False
+    elif case == 'mask_with_holes':
+        valid = rng.rand(n) < 0.5
+        valid[:5] = False
+    elif case == 'random_order':          # key-sorted grid, then shuffled
+        gy, gx, gz = np.meshgrid(np.arange(10), np.arange(10), np.arange(3),
+                                 indexing='ij')
+        src = np.stack([gx, gy, gz], -1).reshape(-1, 3).astype(np.float32)
+        src = src[rng.permutation(len(src))] * np.float32(0.8)
+        valid = rng.rand(len(src)) < 0.9
+        q = (rng.rand(40, 3) * [8, 8, 2.4]).astype(np.float32)
+    elif case == 'ties_across_row_128':   # one point on rows 126-130, 254-258
+        src[126:131] = src[126]
+        src[254:259] = src[254]
+        q[:3] = src[126]
+        q[3:6] = src[254]
+    return src, valid, q
+
+
+@pytest.mark.parametrize('case', [
+    'two_valid', 'none_valid', 'mask_with_holes', 'random_order',
+    'ties_across_row_128', 'n1', 'n2', 'n129'])
+def test_b3_three_nn_corner_cases_match_pallas(case):
+    """The corners the card holds the CUDA kernel to (chip_smoke.py). Where a
+    slot has a valid source, the plain version equals the Pallas kernel
+    (indices exact, distances rtol 1e-6). Where fewer than three sources are
+    valid the two fill the rest differently (the Pallas kernel repeats an
+    index at 1e10), and the plain version is held to its own rule: invalid
+    sources at 1e10 + d, the lowest index first, then (inf, 0)."""
+    src, valid, q = _b3_case(case)
+    n = len(src)
+    d_ref, i_ref = three_nn_pallas(jnp.asarray(src), jnp.asarray(valid),
+                                   jnp.asarray(q), bm=128, bn=128,
+                                   interpret=True)
+    d_ref, i_ref = np.asarray(d_ref), np.asarray(i_ref)
+    d, i = three_nn_plain(t(src)[None], t(valid)[None], t(q)[None])
+    d, i = d[0].numpy(), i[0].numpy()
+    real = d_ref < 1e9                     # slots with a valid source
+    assert real.sum() == len(q) * min(3, int(valid.sum()))
+    np.testing.assert_array_equal(i[real], i_ref[real])
+    np.testing.assert_allclose(d[real], d_ref[real], rtol=1e-6)
+    d_or, i_or = _b3_oracle(src, valid, q)
+    filled = min(3, n)
+    np.testing.assert_array_equal(i[:, :filled], i_or[:, :filled])
+    np.testing.assert_allclose(d[:, :filled], d_or[:, :filled], rtol=1e-6)
+    assert np.isinf(d[:, filled:]).all() and (i[:, filled:] == 0).all()
+    assert (d[~real] >= 1e10).all()
+    if case == 'ties_across_row_128':
+        np.testing.assert_array_equal(i[:6], [[126, 127, 128]] * 3
+                                      + [[254, 255, 256]] * 3)
 
 
 def test_b3_three_nn_ties_lowest_index():

@@ -36,7 +36,7 @@ def _imported_roots(path):
 
 @pytest.mark.parametrize('path', sorted(
     [p.relative_to(REPO) for p in (REPO / 'fv2p_torch').rglob('*.py')]
-    + [Path('chip_smoke.py')]), ids=str)
+    + [Path('chip_smoke.py'), Path('tools/torch_kernel_variants.py')]), ids=str)
 def test_port_imports_no_jax(path):
     bad = sorted({m for m in _imported_roots(REPO / path) if m in FORBIDDEN})
     assert not bad, f'{path} imports {bad}'
@@ -122,3 +122,12 @@ def test_kernels_match_plain_on_card():
     ov = rotated_iou.overlap_matrix(corners.cuda(), corners.cuda()).cpu()
     torch.testing.assert_close(ov, rotated_iou.overlap_matrix_plain(corners, corners),
                                rtol=0, atol=1e-4)
+    # the IoU entry points compute corners and areas themselves: the sines
+    # and cosines come from the card on one side and the CPU on the other
+    iou = rotated_iou.iou_bev(boxes.cuda(), boxes[:20].cuda()).cpu()
+    torch.testing.assert_close(iou, rotated_iou.iou_bev_plain(boxes, boxes[:20]),
+                               rtol=0, atol=1e-4)
+    upper = rotated_iou.iou_bev_upper(boxes.cuda()).cpu()
+    torch.testing.assert_close(upper, rotated_iou.iou_bev_upper_plain(boxes),
+                               rtol=0, atol=1e-4)
+    assert (upper.tril() == 0).all() and (upper > 0).any()
