@@ -3,13 +3,22 @@
 
     python3 chip_smoke.py          # from the repository root, one CUDA card
 
-It builds the four hand-written CUDA kernels (nvcc, sm_90a), builds FV2P
-(tools/cfgs/kitti_models/FV2P/fv2p.yaml) at full width in bf16 with seeded
-random weights, and drives KITTI Car inference on the bench batch: batch 4,
-16000-voxel cap with 14000 filled from ray-cast surface scans, host
-rulebooks, 18000 raw points per scan. Then it
+It builds the four hand-written CUDA kernels (nvcc, sm_90a) and drives two
+models at full width in bf16 with seeded random weights on the bench batch:
+batch 4, 16000-voxel cap with 14000 filled from ray-cast surface scans, host
+rulebooks, 18000 raw points per scan (MGAF reads no points).
 
-  * checks that each kernel's launch counter moved during that forward;
+  * FV2P (tools/cfgs/kitti_models/FV2P/fv2p.yaml), KITTI Car: all four
+    kernels on its path;
+  * MGAF-3DSSD (tools/cfgs/kitti_models/MGAF-3DSSD/mgaf-3dssd.yaml), KITTI
+    Car: the DCN BEV backbone and CenterAF head, kernel B1 in its final NMS
+    (one launch per scan).
+
+For each model it
+
+  * sets the kernels' launch counters to 0 just before one forward, reads
+    them just after, and checks each kernel of the path launched (and, for
+    MGAF, B1 exactly once per scan and nothing else);
   * replays every kernel call the forward made, kernel against its plain
     PyTorch version on the same card tensors (B2/B3 indices identical, B3
     squared distances within rtol 1e-6 + atol 1e-6, B1 IoU and areas within
@@ -18,24 +27,28 @@ rulebooks, 18000 raw points per scan. Then it
     sound kernel differs by at most one bf16 ulp);
   * runs the forward once more in f32 (no TF32) with the kernels and once
     with the plain versions, and compares the detections;
-  * holds all four kernels against their plain versions on small seeded
-    corner cases (rows without valid points, ties, ball counts at and around
-    nsample, unsorted sources, touching and degenerate boxes, ragged sizes),
-    with the same comparisons;
-  * times each kernel's calls of one forward with CUDA events beside its
-    plain version, the least time the card could take for the same work,
-    (B3) torch.cdist + topk as a library yardstick and the least share of
-    tiles an exact tile-pruned search must visit, (B2) the kernel's chain of
-    cluster exchanges without its distance work, (B1) the share of pairs that
-    survive the cull and the kernels one IoU call queues; and times the whole
-    forward on the batch already on the card (median of 20), per module, and
-    the device's busy share in one profiled pass; and counts the calls in
-    one forward that make the host wait for the card, by source line.
+
+then holds all four kernels against their plain versions on small seeded
+corner cases (rows without valid points, ties, ball counts at and around
+nsample, unsorted sources, touching, degenerate and negative-extent boxes,
+ragged sizes), with the same comparisons. Then the times, all before any use
+of torch.profiler: each kernel's calls of one FV2P forward with CUDA events
+beside its plain version, the least time the card could take for the same
+work, (B3) torch.cdist + topk as a library yardstick and the least share of
+tiles an exact tile-pruned search must visit, (B2) the kernel's chain of
+cluster exchanges without its distance work, (B1) the share of pairs that
+survive the cull, and B1 on MGAF's calls; all deformable convolutions of one
+MGAF forward beside their bound; each model's whole forward on the batch
+already on the card (median of 20), per module, and its peak memory. Last,
+under the profiler and CUDA's sync debug mode: the device's busy share of one
+pass of each model, each kernel's own device time, the kernels one IoU call
+queues, and the calls in one forward that make the host wait for the card,
+by source line.
 
 Exits non-zero on any failure, and without a CUDA card. The second-to-last
-lines are a JSON ``kernels`` object and the nvidia-smi name and power limit;
-the last line is ``{"ok": true, "device": {...}}``. A fuller record goes to
-chiprun_out/chip_smoke.json.
+lines are a JSON ``kernels`` object (FV2P's path) and the nvidia-smi name and
+power limit; the last line is ``{"ok": true, "device": {...}}``. A fuller
+record, MGAF's numbers included, goes to chiprun_out/chip_smoke.json.
 """
 import contextlib
 import json
@@ -49,6 +62,7 @@ import torch
 
 REPO = Path(__file__).resolve().parent
 CFG = REPO / 'tools' / 'cfgs' / 'kitti_models' / 'FV2P' / 'fv2p.yaml'
+MGAF_CFG = REPO / 'tools' / 'cfgs' / 'kitti_models' / 'MGAF-3DSSD' / 'mgaf-3dssd.yaml'
 OUT_DIR = REPO / 'chiprun_out'
 BATCH, N_CAP, N_FILL, N_POINTS, SEED = 4, 16000, 14000, 18000, 0
 
@@ -66,7 +80,11 @@ B4_REL, B4_FLOOR = 2.0 ** -7, 2.0 ** -3
 B3_DIST_TOL = 1e-6          # rtol and atol (m^2): both sides round alike
 F32_ATOL = 1e-4
 FORWARD_REPS = 20
+MODULE_REPS = 3
 KEPT_ROWS = 100             # the kept buffer of the proposal NMS (post_max)
+# finite outputs each model must give besides the detections
+FV2P_KEYS = ('batch_box_preds', 'batch_iouscore_preds', 'point_features')
+MGAF_KEYS = ('batch_box_preds', 'batch_iouscore_preds', 'spatial_features_before_head')
 
 
 def log(*a):
@@ -217,6 +235,20 @@ def bound_sa_group(call):
     f32_ops = 8 * g * int(valid.sum()) + 2 * h * slots   # distances, layer 1
     bf16_ops = 2 * h * h * slots                         # layer 2
     return nbytes / HBM_BYTES_S, f32_ops / F32_OPS_S + bf16_ops / BF16_OPS_S
+
+
+def bound_dcn(args):
+    """One modulated_deform_conv call: its inputs read once (map, offsets,
+    mask, weights) and its f32 output written once; 2 operations a MAC at
+    the rate of the compute type."""
+    x, dy, dx, mask, w, ks, _ = args
+    b, h, wd, c = x.shape
+    cout = w.shape[-1]
+    nbytes = sum(t.numel() * t.element_size() for t in (x, dy, dx, mask, w))
+    nbytes += b * h * wd * cout * 4
+    macs = b * h * wd * ks * ks * c * cout
+    rate = F32_OPS_S if x.dtype == torch.float32 else BF16_OPS_S
+    return nbytes / HBM_BYTES_S, 2 * macs / rate, macs
 
 
 # ------------------------------------------------------------ comparisons
@@ -556,6 +588,20 @@ def rotated_iou_corner_cases():
     ca, cb = bev_corners_ccw(f(boxes(45, 6.0))), bev_corners_ccw(f(boxes(77, 6.0)))
     cases.append(('areas from corners, N = 45, M = 77',
                   ('overlap_matrix_cuda', (ca.contiguous(), cb.contiguous()))))
+    # extents as MGAF decodes them (raw, no exp): negative, zero and mixed
+    # sign, on the centers of ordinary boxes (near) or 60 m from every box
+    normal = boxes(12, 6.0)
+    extents = np.array([(-3.0, 1.5), (2.5, -1.2), (-2.0, -1.6), (0.0, 1.5), (1.8, 0.0),
+                        (0.0, 0.0), (-1e-3, 2.0), (0.0, -1.0), (-4.0, -0.5)])
+    for where, shift in (('near', 0.0), ('far', 60.0)):
+        odd = normal[:len(extents)].copy()
+        odd[:, 3:5] = extents
+        odd[:, :2] += rng.uniform(-0.4, 0.4, (len(extents), 2)) + (shift, 0.0)
+        label = f'negative, zero and mixed-sign extents, {where}'
+        cases += [(f'{label}: as rows', ('iou_bev_cuda', (f(odd), f(normal)))),
+                  (f'{label}: as columns', ('iou_bev_cuda', (f(normal), f(odd)))),
+                  (f'{label}: one set, upper triangle',
+                   ('iou_bev_upper_cuda', (f(np.concatenate([normal, odd])),)))]
     return cases
 
 
@@ -578,12 +624,17 @@ def nvidia_smi():
     return out.stdout.strip().splitlines()[0]
 
 
-def build_inputs():
+def load_cfg(path):
     from fv2p_torch.config import EasyDict, cfg_from_yaml_file
+    cfg = EasyDict()
+    cfg_from_yaml_file(str(path), cfg)
+    return cfg
+
+
+def build_inputs():
     from fv2p_torch.datasets import dataset_meta_from_cfg
     from fv2p_torch.utils.synthetic import synthetic_batch_np
-    cfg = EasyDict()
-    cfg_from_yaml_file(str(CFG), cfg)
+    cfg = load_cfg(CFG)
     meta = dataset_meta_from_cfg(cfg.DATA_CONFIG, 'train')
     t0 = time.perf_counter()
     batch_np = synthetic_batch_np(meta, BATCH, N_CAP, N_FILL,
@@ -592,12 +643,20 @@ def build_inputs():
     return cfg, meta, batch_np, host_s
 
 
-def make_model(cfg, meta, dtype):
+def make_model(cfg, meta, dtype, calibrate_on=None):
+    """The model with seeded weights; with `calibrate_on` (a batch on the
+    card) its BatchNorm statistics are set from one forward over it. MGAF
+    needs that: with identity statistics its activations shrink layer by
+    layer and no heat-map logit clears the score threshold. FV2P keeps
+    identity statistics: its detections survive without them."""
     from fv2p_torch.models import build_network
-    from fv2p_torch.weights import init_random_
+    from fv2p_torch.weights import calibrate_batchnorm_, init_random_
     model = build_network(cfg.MODEL, len(cfg.CLASS_NAMES), cfg.CLASS_NAMES,
                           meta, compute_dtype=dtype)
-    return init_random_(model, seed=SEED)
+    init_random_(model, seed=SEED)
+    if calibrate_on is not None:
+        calibrate_batchnorm_(model, calibrate_on)
+    return model
 
 
 def forward(model, batch):
@@ -606,19 +665,36 @@ def forward(model, batch):
     return model(dict(batch))
 
 
-def check_outputs(out, post):
+def check_outputs(out, post, keys):
+    """Detections of the expected shapes, finite, at least one valid; the
+    model's other outputs `keys` finite too."""
     for key, shape in (('pred_boxes', (BATCH, post, 7)), ('pred_scores', (BATCH, post)),
                        ('pred_labels', (BATCH, post)), ('pred_valid', (BATCH, post))):
         if tuple(out[key].shape) != shape:
             fail(f'{key} has shape {tuple(out[key].shape)}, expected {shape}')
-    for key in ('pred_boxes', 'pred_scores', 'batch_box_preds',
-                'batch_iouscore_preds', 'point_features'):
+    for key in ('pred_boxes', 'pred_scores') + keys:
         if not torch.isfinite(out[key].float()).all():
             fail(f'{key} is not finite')
     n_valid = int(out['pred_valid'].sum())
     if n_valid == 0:
         fail('no detection survived post-processing')
     return n_valid
+
+
+@contextlib.contextmanager
+def full_f32():
+    """f32 convolutions and products without TF32, the defaults restored
+    after."""
+    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+             torch.get_float32_matmul_precision())
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision('highest')
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved[:2]
+        torch.set_float32_matmul_precision(saved[2])
 
 
 def timed_forwards(model, batch, n):
@@ -679,7 +755,7 @@ def host_syncs(model, batch):
 
 def module_times(model, batch):
     """ms per top-level module of one forward (CUDA events), plus the
-    post-processing that follows them."""
+    post-processing that follows the last of them."""
     from fv2p_torch.models.detectors.detector3d_template import MODULE_TOPOLOGY
     events = {}
     handles = []
@@ -699,18 +775,161 @@ def module_times(model, batch):
     for h in handles:
         h.remove()
     times = {slot: e[0].elapsed_time(e[1]) for slot, e in events.items()}
-    times['post_processing'] = events['roi_head'][1].elapsed_time(end)
+    last = list(events.values())[-1]
+    times['post_processing'] = last[1].elapsed_time(end)
     return times, out
+
+
+def forward_stats(model, batch, label):
+    """Median and quartiles of FORWARD_REPS forwards after 2 warm-ups, the
+    per-module times (median of MODULE_REPS more: one pass can catch a host
+    stall that idles the card inside any module) and the peak device memory
+    of one more (the resident models and batch included)."""
+    timed_forwards(model, batch, 2)                      # warm-up
+    fwd = np.array(timed_forwards(model, batch, FORWARD_REPS))
+    q1, med, q3 = (float(x) for x in np.percentile(fwd, [25, 50, 75]))
+    passes = [module_times(model, batch)[0] for _ in range(MODULE_REPS)]
+    per_module = {m: float(np.median([p[m] for p in passes])) for m in passes[0]}
+    torch.cuda.reset_peak_memory_stats()
+    forward(model, batch)
+    sync()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f'# {label} bf16 forward at batch {BATCH}: median {med:.2f} ms '
+        f'(quartiles {q1:.2f}-{q3:.2f}, n={FORWARD_REPS}; {med / BATCH:.2f} ms/scan); '
+        f'peak device memory {peak:.2f} GiB')
+    log(f'# {label} per module (ms, median of {MODULE_REPS}): {per_module}')
+    return {'forward_ms': {'median': med, 'q1': q1, 'q3': q3, 'min': float(fwd.min()),
+                           'max': float(fwd.max()), 'n': FORWARD_REPS,
+                           'all': fwd.tolist()},
+            'ms_per_scan': med / BATCH, 'per_module_ms': per_module,
+            'peak_mem_gib': peak}
+
+
+def profile_stats(model, batch, label):
+    """The device's busy share of one profiled pass and the host waits of one
+    forward by source line."""
+    prof = profiled_forward(model, batch)
+    n_syncs, sync_sites = host_syncs(model, batch)
+    log(f'# {label}: device busy {prof["busy_share"]:.1%} of a profiled pass '
+        f'({prof["device_busy_ms"]:.2f} of {prof["wall_ms"]:.2f} ms)')
+    log(f'# {label} host waits in one forward: {n_syncs}; by line: {sync_sites}')
+    return {'profile': prof, 'host_syncs': n_syncs, 'host_sync_sites': sync_sites}
+
+
+def mgaf_main_path(kernels, model, batch):
+    """MGAF's forward, counted: B1 once per scan (the final NMS of 50
+    candidates) and no other kernel. Returns (output, B1 with its calls,
+    launches)."""
+    from fv2p_torch.ops import cuda as kcuda
+    b1 = next(k for k in kernels if k.name == 'rotated_iou')
+    b1 = Kernel(b1.name, b1.module, b1.entries, b1.source, b1.replaces)
+    kcuda.reset_launch_counts()
+    with patched([b1], capturing):
+        out = forward(model, batch)
+    sync()
+    launches = dict(kcuda.launch_counts)
+    log(f'# mgaf main path launches: {launches}')
+    for name, n in launches.items():
+        want = BATCH if name == 'rotated_iou' else 0
+        if n != want:
+            fail(f'mgaf: {name} launched {n} times on the main path, expected {want}')
+    if len(b1.calls) != BATCH:
+        fail(f'mgaf: {launches["rotated_iou"]} launches, {len(b1.calls)} calls')
+    return out, b1, launches
+
+
+def mgaf_nms_keeps(kernels, model, out):
+    """The final NMS on MGAF's decoded candidates through the kernel and
+    through the plain version: the keep lists must be identical."""
+    final_in = {k: out[k] for k in ('batch_box_preds', 'batch_cls_preds',
+                                    'batch_iouscore_preds', 'cls_preds_normalized')}
+    ker = model.post_processing_withfgscores(dict(final_in))
+    with patched(kernels, plain_route):
+        pln = model.post_processing_withfgscores(dict(final_in))
+    for key in ('pred_boxes', 'pred_valid', 'pred_labels'):
+        if not torch.equal(ker[key], pln[key]):
+            fail(f'mgaf final NMS {key} differs between kernel and plain overlaps')
+    log('# mgaf: final NMS keep lists identical')
+
+
+def f32_forward(kernels, cfg, meta, batch, post, keys, label, compare_keys,
+                calibrate=False):
+    """The forward in f32 without TF32 through the kernels and through the
+    plain versions: identical detections, floats within F32_ATOL."""
+    with full_f32():
+        model32 = make_model(cfg, meta, None, batch if calibrate else None)
+        out_k = forward(model32, batch)
+        with patched(kernels, plain_route):
+            out_p = forward(model32, batch)
+        sync()
+    check_outputs(out_k, post, keys)
+    for key in ('pred_valid', 'pred_labels'):
+        if not torch.equal(out_k[key], out_p[key]):
+            fail(f'{label} f32 forward: {key} differs between kernels and plain versions')
+    diffs = {}
+    for key in compare_keys:
+        diffs[key] = float((out_k[key] - out_p[key]).abs().max())
+        if diffs[key] > F32_ATOL:
+            fail(f'{label} f32 forward: {key} differs by {diffs[key]} > {F32_ATOL}')
+    log(f'# {label} f32 forward, kernels vs plain versions: {diffs}; '
+        f'{int(out_k["pred_valid"].sum())} valid detections')
+    del model32, out_k, out_p
+    torch.cuda.empty_cache()
+    return diffs
+
+
+def dcn_times(model, batch):
+    """Every modulated_deform_conv call of one MGAF forward, replayed on the
+    same card tensors (CUDA events), beside the least time the card could
+    take: bytes in and out over the memory rate, MACs x 2 over the peak."""
+    from fv2p_torch.ops import dcn
+    calls, orig = [], dcn.modulated_deform_conv
+
+    def capture(*args):
+        calls.append(args)
+        return orig(*args)
+
+    dcn.modulated_deform_conv = capture
+    try:
+        forward(model, batch)
+    finally:
+        dcn.modulated_deform_conv = orig
+    sync()
+    per_call = [time_events(lambda a=a: orig(*a), reps=5) for a in calls]
+    total = time_events(lambda: [orig(*a) for a in calls], reps=5)
+    peak_gib = []                    # device memory a call takes beyond its inputs
+    for a in calls:
+        sync()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        orig(*a)
+        sync()
+        peak_gib.append((torch.cuda.max_memory_allocated() - base) / 2 ** 30)
+    bounds = [bound_dcn(a) for a in calls]
+    b_bytes, b_ops, macs = (sum(x) for x in zip(*bounds))
+    rec = {'calls': len(calls), 'ms': total, 'per_call_ms': per_call,
+           'per_call_peak_gib': peak_gib,
+           'shapes': [[list(a[0].shape), list(a[4].shape), a[6]] for a in calls],
+           'macs': macs, 'bound_ms': max(b_bytes, b_ops) * 1e3,
+           'bound_bytes_ms': b_bytes * 1e3, 'bound_ops_ms': b_ops * 1e3,
+           'bound_by': 'bytes' if b_bytes >= b_ops else 'operations'}
+    log(f'# mgaf DCN: {len(calls)} calls, {total:.3f} ms a forward (per call '
+        f'{[round(x, 3) for x in per_call]}); bound {rec["bound_ms"]:.4f} ms '
+        f'({rec["bound_by"]}; bytes {rec["bound_bytes_ms"]:.4f}, MACs x 2 '
+        f'{rec["bound_ops_ms"]:.4f}); {macs / 1e9:.1f} GMAC; device memory '
+        f'beyond the inputs, per call (GiB): {[round(x, 3) for x in peak_gib]}')
+    return rec
 
 
 def main():
     if not torch.cuda.is_available():
         log('chip_smoke.py needs a CUDA card; none is available')
         return 2
-    if not (REPO / 'fv2p_torch').is_dir() or not CFG.exists():
+    if not (REPO / 'fv2p_torch').is_dir() or not CFG.exists() or not MGAF_CFG.exists():
         log('chip_smoke.py must run from a checkout of the repository')
         return 2
     sys.path.insert(0, str(REPO))
+    from fv2p_torch.datasets import dataset_meta_from_cfg
     from fv2p_torch.models.roi_heads.iouguided_roi_head import proposal_layer
     from fv2p_torch.ops import cuda as kcuda
     from fv2p_torch.ops.cuda import fps, rotated_iou, sa_group, three_nn
@@ -747,9 +966,13 @@ def main():
               'three_nn': bound_three_nn, 'sa_group': bound_sa_group}
     by_name = {k.name: k for k in kernels}
 
-    # 2-3. the model and the bench batch (built on the host, copied once)
+    # 2-3. the models and the bench batch (built on the host, copied once);
+    # MGAF's bench batch is FV2P's: the same meta, the voxels drawn first
     from fv2p_torch.utils.synthetic import batch_to_torch
     cfg, meta, batch_np, host_s = build_inputs()
+    mcfg = load_cfg(MGAF_CFG)
+    if dataset_meta_from_cfg(mcfg.DATA_CONFIG, 'train') != meta:
+        fail('MGAF and FV2P derive different dataset metas: the batch is not shared')
     t0 = time.perf_counter()
     batch = batch_to_torch(batch_np, 'cuda')
     sync()
@@ -757,7 +980,7 @@ def main():
                   batch_to_device_ms=(time.perf_counter() - t0) * 1e3)
     model = make_model(cfg, meta, torch.bfloat16)
     post = int(cfg.MODEL.POST_PROCESSING.NMS_CONFIG.NMS_POST_MAXSIZE)
-    log(f'# bench batch built on the host in {host_s:.1f} s; '
+    log(f'# bench batch built on the host in {host_s:.1f} s; FV2P '
         f'{sum(p.numel() for p in model.parameters())} parameters')
 
     # 4. the main path, counted: every count is 0 just before, read just after
@@ -788,7 +1011,7 @@ def main():
     if launches['rotated_iou'] < 2 * BATCH:
         fail(f'rotated_iou: {launches["rotated_iou"]} launches, expected at '
              f'least {2 * BATCH}')
-    n_valid = check_outputs(out, post)
+    n_valid = check_outputs(out, post, FV2P_KEYS)
     log(f'# bf16 forward: {n_valid} valid detections over {BATCH} scans')
 
     # 5. each kernel against its plain version on the main path's inputs
@@ -828,34 +1051,42 @@ def main():
         if not torch.equal(ker[1][key], pln[1][key]):
             fail(f'final NMS {key} differs between kernel and plain overlaps')
     log('# NMS keep lists identical (proposal and final)')
+    del out, ker, pln, head_io
 
-    # 6. the whole forward in f32 without TF32: kernels against plain versions
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.set_float32_matmul_precision('highest')
-    model32 = make_model(cfg, meta, None)
-    out_k = forward(model32, batch)
-    with patched(kernels, plain_route):
-        out_p = forward(model32, batch)
-    sync()
-    check_outputs(out_k, post)
-    f32 = {}
-    for key in ('pred_valid', 'pred_labels'):
-        if not torch.equal(out_k[key], out_p[key]):
-            fail(f'f32 forward: {key} differs between kernels and plain versions')
-    for key in ('pred_boxes', 'pred_scores', 'point_features', 'batch_iouscore_preds'):
-        f32[key] = float((out_k[key] - out_p[key]).abs().max())
-        if f32[key] > F32_ATOL:
-            fail(f'f32 forward: {key} differs by {f32[key]} > {F32_ATOL}')
-    record['f32_kernel_vs_plain_max_abs'] = f32
-    log(f'# f32 forward, kernels vs plain versions: {f32}')
-    del model32, out_k, out_p
-    torch.cuda.empty_cache()
+    # 6. MGAF's main path on the same batch, counted, then B1 against its
+    # plain version on MGAF's calls and the final NMS keep lists
+    mgaf = make_model(mcfg, meta, torch.bfloat16, calibrate_on=batch)
+    mpost = int(mcfg.MODEL.POST_PROCESSING.NMS_CONFIG.NMS_POST_MAXSIZE)
+    mrec = {'parameters': sum(p.numel() for p in mgaf.parameters())}
+    log(f'# MGAF-3DSSD {mrec["parameters"]} parameters')
+    out_m, mgaf_b1, mrec['launches'] = mgaf_main_path(kernels, mgaf, batch)
+    mrec['valid_detections'] = check_outputs(out_m, mpost, MGAF_KEYS)
+    cand = torch.cat([c[1][0] for c in mgaf_b1.calls])
+    mrec['b1_boxes'] = int(cand.shape[0])
+    mrec['b1_boxes_nonpositive_extent'] = int((cand[:, 3:5] <= 0).any(-1).sum())
+    log(f'# mgaf bf16 forward: {mrec["valid_detections"]} valid detections over '
+        f'{BATCH} scans; {mrec["b1_boxes_nonpositive_extent"]} of the '
+        f'{mrec["b1_boxes"]} boxes B1 saw have an extent <= 0')
+    mrec['b1_max_abs_err'], mrec['b1_ref_max'] = compare(mgaf_b1)
+    log(f'# mgaf: B1 agrees with its plain version on its {len(mgaf_b1.calls)} '
+        f'calls (max abs error {mrec["b1_max_abs_err"]}, largest |plain output| '
+        f'{mrec["b1_ref_max"]})')
+    mgaf_nms_keeps(kernels, mgaf, out_m)
+    del out_m
 
-    # 7. every kernel on the corner cases its design puts at risk
+    # 7. both forwards in f32 without TF32: kernels against plain versions
+    record['f32_kernel_vs_plain_max_abs'] = f32_forward(
+        kernels, cfg, meta, batch, post, FV2P_KEYS, 'fv2p',
+        ('pred_boxes', 'pred_scores', 'point_features', 'batch_iouscore_preds'))
+    mrec['f32_kernel_vs_plain_max_abs'] = f32_forward(
+        kernels, mcfg, meta, batch, mpost, MGAF_KEYS, 'mgaf',
+        ('pred_boxes', 'pred_scores', 'batch_box_preds', 'batch_iouscore_preds'),
+        calibrate=True)
+
+    # 8. every kernel on the corner cases its design puts at risk
     corner_phase(by_name)
 
-    # 8. times: each kernel's calls of one forward, then the whole forward.
+    # 9. times: each kernel's calls of one forward, then the whole forwards.
     # Nothing before the timed forwards runs under torch.profiler: once the
     # profiler has been on, every later launch of the process costs the host
     # more, and the forward is host-bound for a quarter of its time.
@@ -905,13 +1136,31 @@ def main():
             rows[-1].update(surviving_pair_share=live / pairs, pairs=pairs)
             log(f'# rotated_iou: {live} of {pairs} pairs survive the cull '
                 f'({live / pairs:.4f})')
+    # B1 on MGAF's calls: one forward's launches, replayed
+    b_bytes, b_ops = (sum(x) for x in zip(*(bound_rotated_iou(a) for a in mgaf_b1.calls)))
+    mrec['b1'] = {'launches': mrec['launches']['rotated_iou'],
+                  'ms': time_events(lambda: [mgaf_b1.launch(a) for a in mgaf_b1.calls],
+                                    reps=10),
+                  'plain_ms': time_events(lambda: [mgaf_b1.plain(a) for a in mgaf_b1.calls],
+                                          reps=3),
+                  'bound_ms': max(b_bytes, b_ops) * 1e3,
+                  'bound_by': 'bytes' if b_bytes >= b_ops else 'operations',
+                  'max_abs_err': mrec['b1_max_abs_err']}
+    live, pairs = (sum(x) for x in zip(*(b1_survivors(c) for c in mgaf_b1.calls)))
+    mrec['b1'].update(surviving_pair_share=live / pairs, pairs=pairs)
+    log(f'# mgaf rotated_iou: {mrec["b1"]["ms"]:.4f} ms kernel for its '
+        f'{mrec["b1"]["launches"]} launches, {mrec["b1"]["plain_ms"]:.3f} ms plain, '
+        f'bound {mrec["b1"]["bound_ms"]:.6f} ms ({mrec["b1"]["bound_by"]}); '
+        f'{live} of {pairs} pairs survive the cull')
+    mrec['dcn'] = dcn_times(mgaf, batch)
 
-    timed_forwards(model, batch, 2)                      # warm-up
-    fwd = np.array(timed_forwards(model, batch, FORWARD_REPS))
-    q1, med, q3 = (float(x) for x in np.percentile(fwd, [25, 50, 75]))
-    per_module, _ = module_times(model, batch)
-    prof = profiled_forward(model, batch)
-    n_syncs, sync_sites = host_syncs(model, batch)
+    record.update(forward_stats(model, batch, 'fv2p'))
+    mrec.update(forward_stats(mgaf, batch, 'mgaf'))
+    mrec['dcn']['share_of_forward'] = mrec['dcn']['ms'] / mrec['forward_ms']['median']
+
+    # 10. under the profiler and the sync debug mode, after every timed pass
+    record.update(profile_stats(model, batch, 'fv2p'))
+    mrec.update(profile_stats(mgaf, batch, 'mgaf'))
     # each kernel's calls once more under the profiler: the card's own time
     for k, row in zip(kernels, rows):
         row['device_ms'] = device_ms(lambda: [k.launch(a) for a in k.calls],
@@ -922,24 +1171,13 @@ def main():
                 f'kernel(s), {row["kernels_per_composed_iou_call"]} when corners, '
                 f'areas and division are tensor code around overlap_matrix')
         k.calls.clear()
+    mrec['b1']['device_ms'] = device_ms(
+        lambda: [mgaf_b1.launch(a) for a in mgaf_b1.calls], reps=5)
     log('# card busy in each kernel\'s calls of one forward (ms): '
-        f'{ {row["name"]: round(row["device_ms"], 4) for row in rows} }')
-    torch.cuda.reset_peak_memory_stats()
-    forward(model, batch)
-    sync()
-    record.update(forward_ms={'median': med, 'q1': q1, 'q3': q3,
-                              'min': float(fwd.min()), 'max': float(fwd.max()),
-                              'n': FORWARD_REPS, 'all': fwd.tolist()},
-                  ms_per_scan=med / BATCH, per_module_ms=per_module,
-                  profile=prof, launches=launches, host_syncs=n_syncs,
-                  host_sync_sites=sync_sites,
-                  peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
-                  kernels=rows, nvidia_smi=smi, valid_detections=n_valid)
-    log(f'# bf16 forward at batch {BATCH}: median {med:.2f} ms '
-        f'(quartiles {q1:.2f}-{q3:.2f}, n={FORWARD_REPS}; {med / BATCH:.2f} '
-        f'ms/scan); device busy {prof["busy_share"]:.1%} of a profiled pass')
-    log(f'# per module (ms): {per_module}')
-    log(f'# host waits in one forward: {n_syncs}; by line: {sync_sites}')
+        f'{ {row["name"]: round(row["device_ms"], 4) for row in rows} }; '
+        f'B1 on MGAF\'s calls {mrec["b1"]["device_ms"]:.4f}')
+    record.update(launches=launches, kernels=rows, nvidia_smi=smi,
+                  valid_detections=n_valid, mgaf=mrec)
 
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / 'chip_smoke.json').write_text(json.dumps(record, indent=1))

@@ -1,10 +1,12 @@
-"""Dense BEV backbone (counterpart of
-``fv2p_tpu/models/backbones_2d/base_bev_backbone.py``, ``BaseBEVBackbone``).
+"""Dense BEV backbones (counterpart of
+``fv2p_tpu/models/backbones_2d/base_bev_backbone.py``: ``BaseBEVBackbone``
+and ``DCNBEVBackbone``).
 
 Each level: a k3 conv (stride s, padding 1) + BN + ReLU, then LAYER_NUMS
 more k3 convs; each level is upsampled by a transposed conv (kernel ==
 stride) + BN + ReLU and the ups are concatenated into
-``spatial_features_2d``. The batch dict keeps channels-last (B, H, W, C)
+``spatial_features_2d``. With ``USE_DCN`` each upsampling is preceded by a
+modulated deformable conv block + BN + ReLU. The batch dict keeps channels-last (B, H, W, C)
 maps; the convolutions run on NCHW internally. Module names follow the flax
 auto-names (``Conv_0``, ``BatchNorm_0``, ...) so the weight loader maps them
 one to one.
@@ -12,6 +14,9 @@ one to one.
 import torch
 from torch import nn
 
+# a module reference, not a name: ops.dcn imports models.layers, and so this
+# module may be reached while ops.dcn is still initialising
+from ...ops import dcn
 from ..layers import BatchNorm, Conv2d, ConvTranspose2d
 
 
@@ -34,26 +39,38 @@ class _Block(nn.Module):
 
 
 class _Deblock(nn.Module):
+    """[dcn -> BatchNorm_0 -> ReLU ->] ConvTranspose_0 -> BN -> ReLU; the
+    flax auto-names shift by one BatchNorm when the DCN block is there."""
+
     def __init__(self, cin, num_upsample_filters, upsample_stride,
-                 compute_dtype=None):
+                 use_dcn=False, compute_dtype=None):
         super().__init__()
         if upsample_stride < 1:
             raise NotImplementedError('downsampling deblocks (stride < 1)')
+        self.use_dcn = use_dcn
+        if use_dcn:
+            self.dcn = dcn.MdeformConvBlock(cin, cin, 3, deformable_groups=1,
+                                        compute_dtype=compute_dtype)
+            self.BatchNorm_0 = BatchNorm(cin, axis=1)
+            self.BatchNorm_1 = BatchNorm(num_upsample_filters, axis=1)
+        else:
+            self.BatchNorm_0 = BatchNorm(num_upsample_filters, axis=1)
         self.ConvTranspose_0 = ConvTranspose2d(
             cin, num_upsample_filters, int(upsample_stride), bias=False,
             compute_dtype=compute_dtype)
-        self.BatchNorm_0 = BatchNorm(num_upsample_filters, axis=1)
 
     def forward(self, x):
-        return torch.relu(self.BatchNorm_0(self.ConvTranspose_0(x)))
+        if not self.use_dcn:
+            return torch.relu(self.BatchNorm_0(self.ConvTranspose_0(x)))
+        x = self.dcn(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
+        x = torch.relu(self.BatchNorm_0(x))
+        return torch.relu(self.BatchNorm_1(self.ConvTranspose_0(x)))
 
 
 class BaseBEVBackbone(nn.Module):
     def __init__(self, model_cfg, input_channels, compute_dtype=None):
         super().__init__()
-        if model_cfg.get('USE_DCN', False):
-            raise NotImplementedError(
-                'DCN BEV blocks (ROADMAP: MGAF-3DSSD inference)')
+        use_dcn = bool(model_cfg.get('USE_DCN', False))
         layer_nums = model_cfg.get('LAYER_NUMS', [])
         layer_strides = model_cfg.get('LAYER_STRIDES', [])
         num_filters = model_cfg.get('NUM_FILTERS', [])
@@ -68,7 +85,7 @@ class BaseBEVBackbone(nn.Module):
                                               layer_strides[i], compute_dtype))
             setattr(self, f'deblock{i}', _Deblock(
                 num_filters[i], num_up_filters[i], upsample_strides[i],
-                compute_dtype))
+                use_dcn, compute_dtype))
             cin = num_filters[i]
 
     def forward(self, batch_dict):
@@ -83,3 +100,9 @@ class BaseBEVBackbone(nn.Module):
         x = torch.cat(ups, dim=1)
         batch_dict['spatial_features_2d'] = x.permute(0, 2, 3, 1)
         return batch_dict
+
+
+class DCNBEVBackbone(BaseBEVBackbone):
+    """BaseBEVBackbone with a DCN block before each deblock when the config
+    sets USE_DCN (MGAF-3DSSD: 3 levels [5, 5, 5], ups [1, 2, 4] -> 768
+    channels)."""

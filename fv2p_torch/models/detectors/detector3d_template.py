@@ -1,20 +1,23 @@
 """Config-driven detector assembly (counterpart of
-``fv2p_tpu/models/detectors/detector3d_template.py``), restricted to what
-FV2P builds.
+``fv2p_tpu/models/detectors/detector3d_template.py``), restricted to the
+detectors and modules ported so far: FV2P and MGAF-3DSSD, in eval mode.
 
-The 9-slot module topology's order is kept: the forward runs the slots
-FV2P builds in that order on one batch dict of tensors, then post-processes
-into fixed-shape (B, post_max) outputs."""
+Each of the 9 slots of the module topology is built iff its config key
+exists, and the forward runs the built slots in that order on one batch
+dict of tensors, then post-processes into fixed-shape (B, post_max)
+outputs. A slot or detector that is not ported raises NotImplementedError
+naming the ROADMAP queue."""
 import torch
 from torch import nn
 
 from ...utils import iou3d
-from ..backbones_2d.base_bev_backbone import BaseBEVBackbone
+from ..backbones_2d.base_bev_backbone import BaseBEVBackbone, DCNBEVBackbone
 from ..backbones_2d.map_to_bev.height_compression import HeightCompression
 from ..backbones_3d.pfe.residual_v2p_decoder import ResidualVoxelToPointDecoder
 from ..backbones_3d.spconv_backbone import VoxelResBackBone8x
 from ..backbones_3d.vfe.mean_vfe import MeanVFE
 from ..dense_heads.anchor_head import AnchorHeadSingle
+from ..dense_heads.center_af_head import CenterAFHeadSingle
 from ..dense_heads.point_head_simple import PointHeadSimple
 from ..roi_heads.iouguided_roi_head import IoUGuidedRoIHead
 
@@ -22,11 +25,16 @@ MODULE_TOPOLOGY = ['vfe', 'backbone_3d', 'map_to_bev_module', 'pfe',
                    'backbone_2d', 'dense_head', 'post_pfe', 'point_head',
                    'roi_head']
 
-# what the port builds so far, per slot; anything else is later work
+# each slot's config key and the ported modules it may name
+_SLOT_KEYS = {'vfe': 'VFE', 'backbone_3d': 'BACKBONE_3D',
+              'map_to_bev_module': 'MAP_TO_BEV', 'pfe': 'PFE',
+              'backbone_2d': 'BACKBONE_2D', 'dense_head': 'DENSE_HEAD',
+              'post_pfe': 'POST_PFE', 'point_head': 'POINT_HEAD',
+              'roi_head': 'ROI_HEAD'}
 _PORTED = {'VFE': ('MeanVFE',), 'BACKBONE_3D': ('VoxelResBackBone8x',),
-           'MAP_TO_BEV': ('HeightCompression',),
-           'BACKBONE_2D': ('BaseBEVBackbone',),
-           'DENSE_HEAD': ('AnchorHeadSingle',),
+           'MAP_TO_BEV': ('HeightCompression',), 'PFE': (),
+           'BACKBONE_2D': ('BaseBEVBackbone', 'DCNBEVBackbone'),
+           'DENSE_HEAD': ('AnchorHeadSingle', 'CenterAFHeadSingle'),
            'POST_PFE': ('ResidualVoxelToPointDecoder',),
            'POINT_HEAD': ('PointHeadSimple',),
            'ROI_HEAD': ('IoUGuidedRoIHead',)}
@@ -34,48 +42,81 @@ _PORTED = {'VFE': ('MeanVFE',), 'BACKBONE_3D': ('VoxelResBackBone8x',),
 
 def _not_ported(what):
     return NotImplementedError(
-        f'{what} is not in fv2p_torch yet (ROADMAP.md, queue A: '
-        'MGAF-3DSSD inference, training, the rest of the model zoo)')
+        f'{what} is not in fv2p_torch yet (ROADMAP.md, queue A: training, '
+        'the runner, multi-GPU, the rest of the model zoo)')
 
 
-class FromVoxelToPoint(nn.Module):
-    """Two-stage IoU-guided detector: anchor RPN -> voxel-to-point decoder
-    -> point segmentation head -> IoU-guided RoI head with two-pass
-    alignment -> IoU-score-ranked NMS."""
+class Detector3DTemplate(nn.Module):
+    """Builds the slots its config names; eval-mode forward through them,
+    then IoU-score-ranked NMS (``post_processing_withfgscores``), the
+    post-processing of both ported detectors."""
 
     def __init__(self, model_cfg, num_class, class_names, dataset_meta,
                  compute_dtype=None):
         super().__init__()
-        cfg = model_cfg
-        for key, names in _PORTED.items():
-            if key in cfg and cfg[key].NAME not in names:
-                raise _not_ported(f'{key} {cfg[key].NAME}')
-        if 'PFE' in cfg:
-            raise _not_ported(f'PFE {cfg.PFE.NAME}')
-        self.model_cfg = cfg
-        meta = dataset_meta
-        pc_range = tuple(meta['point_cloud_range'])
-        voxel_size = tuple(meta['voxel_size'])
-        cd = compute_dtype
+        self.model_cfg = model_cfg
+        self.num_class = num_class
+        self.dataset_meta = dataset_meta
+        self.compute_dtype = compute_dtype
+        for slot in MODULE_TOPOLOGY:
+            key = _SLOT_KEYS[slot]
+            if key not in model_cfg:
+                continue
+            if model_cfg[key].NAME not in _PORTED[key]:
+                raise _not_ported(f'{key} {model_cfg[key].NAME}')
+            setattr(self, slot, getattr(self, f'_build_{slot}')())
 
-        self.vfe = MeanVFE()
-        self.backbone_3d = VoxelResBackBone8x(meta['num_point_features'],
-                                              meta['grid_size'], cd)
-        self.map_to_bev_module = HeightCompression()
-        num_bev = int(cfg.MAP_TO_BEV.NUM_BEV_FEATURES)
-        self.backbone_2d = BaseBEVBackbone(cfg.BACKBONE_2D, num_bev, cd)
-        bev_cfg = cfg.BACKBONE_2D
-        bev_out = int(sum(bev_cfg.get('NUM_UPSAMPLE_FILTERS',
-                                      [bev_cfg['NUM_FILTERS'][-1]])))
-        self.dense_head = AnchorHeadSingle(
-            cfg.DENSE_HEAD, bev_out, num_class, meta['grid_size'], pc_range)
-        self.post_pfe = ResidualVoxelToPointDecoder(cfg.POST_PFE, voxel_size,
-                                                    pc_range, cd)
-        point_ch = int(cfg.POST_PFE.OUT_BLOCK.OUT_CHANNELS)
-        self.point_head = PointHeadSimple(cfg.POINT_HEAD, point_ch, num_class, cd)
-        roi_classes = 1 if cfg.ROI_HEAD.get('CLASS_AGNOSTIC', True) else num_class
-        self.roi_head = IoUGuidedRoIHead(cfg.ROI_HEAD, roi_classes, pc_range,
-                                         voxel_size, point_ch, bev_out, cd)
+    def _bev_out_channels(self):
+        bev_cfg = self.model_cfg.BACKBONE_2D
+        return int(sum(bev_cfg.get('NUM_UPSAMPLE_FILTERS',
+                                   [bev_cfg['NUM_FILTERS'][-1]])))
+
+    def _build_vfe(self):
+        return MeanVFE()
+
+    def _build_backbone_3d(self):
+        meta = self.dataset_meta
+        return VoxelResBackBone8x(meta['num_point_features'], meta['grid_size'],
+                                  self.compute_dtype)
+
+    def _build_map_to_bev_module(self):
+        return HeightCompression()
+
+    def _build_backbone_2d(self):
+        cfg = self.model_cfg
+        cls = {'BaseBEVBackbone': BaseBEVBackbone,
+               'DCNBEVBackbone': DCNBEVBackbone}[cfg.BACKBONE_2D.NAME]
+        return cls(cfg.BACKBONE_2D, int(cfg.MAP_TO_BEV.NUM_BEV_FEATURES),
+                   self.compute_dtype)
+
+    def _build_dense_head(self):
+        cfg, meta = self.model_cfg.DENSE_HEAD, self.dataset_meta
+        if cfg.NAME == 'AnchorHeadSingle':
+            return AnchorHeadSingle(cfg, self._bev_out_channels(), self.num_class,
+                                    meta['grid_size'], meta['point_cloud_range'])
+        return CenterAFHeadSingle(cfg, self._bev_out_channels(), self.num_class,
+                                  meta['voxel_size'], meta['point_cloud_range'],
+                                  self.compute_dtype)
+
+    def _build_post_pfe(self):
+        meta = self.dataset_meta
+        return ResidualVoxelToPointDecoder(
+            self.model_cfg.POST_PFE, tuple(meta['voxel_size']),
+            tuple(meta['point_cloud_range']), self.compute_dtype)
+
+    def _point_channels(self):
+        return int(self.model_cfg.POST_PFE.OUT_BLOCK.OUT_CHANNELS)
+
+    def _build_point_head(self):
+        return PointHeadSimple(self.model_cfg.POINT_HEAD, self._point_channels(),
+                               self.num_class, self.compute_dtype)
+
+    def _build_roi_head(self):
+        cfg, meta = self.model_cfg.ROI_HEAD, self.dataset_meta
+        roi_classes = 1 if cfg.get('CLASS_AGNOSTIC', True) else self.num_class
+        return IoUGuidedRoIHead(cfg, roi_classes, tuple(meta['point_cloud_range']),
+                                tuple(meta['voxel_size']), self._point_channels(),
+                                self._bev_out_channels(), self.compute_dtype)
 
     def module_list(self):
         return [getattr(self, slot) for slot in MODULE_TOPOLOGY
@@ -128,7 +169,19 @@ class FromVoxelToPoint(nn.Module):
         }
 
 
-DETECTOR_REGISTRY = {'FromVoxelToPoint': FromVoxelToPoint}
+class FromVoxelToPoint(Detector3DTemplate):
+    """Two-stage IoU-guided detector: anchor RPN -> voxel-to-point decoder
+    -> point segmentation head -> IoU-guided RoI head with two-pass
+    alignment -> IoU-score-ranked NMS."""
+
+
+class MGAF3DSSD(Detector3DTemplate):
+    """Single-stage anchor-free detector: sparse trunk -> DCN BEV backbone ->
+    CenterAF head (max-pool NMS + top-K decode) -> IoU-score-ranked NMS."""
+
+
+DETECTOR_REGISTRY = {'FromVoxelToPoint': FromVoxelToPoint,
+                     'MGAF3DSSD': MGAF3DSSD}
 
 
 def build_detector(model_cfg, num_class, class_names, dataset_meta,

@@ -3,8 +3,8 @@
 ``Dense``/``Conv2d``/``ConvTranspose2d`` keep f32 weights and compute in
 ``compute_dtype`` when one is set (input and weights cast to it, output in
 it); without one they compute in f32, as flax infers from f32 parameters.
-``BatchNorm`` is the eval-mode flax BatchNorm (epsilon 1e-3): f32
-statistics and output, ``(x - mean) * (scale * rsqrt(var + eps)) + bias``.
+``BatchNorm`` is the eval-mode flax BatchNorm (epsilon 1e-3 unless given):
+f32 statistics and output, ``(x - mean) * (scale * rsqrt(var + eps)) + bias``.
 ``weights.load_flax_variables`` maps these modules onto flax param trees by
 their dotted names.
 """
@@ -67,9 +67,10 @@ class ConvTranspose2d(nn.ConvTranspose2d):
 class BatchNorm(nn.Module):
     """Eval-mode flax BatchNorm over ``axis`` (default: the last axis)."""
 
-    def __init__(self, num_features, axis=-1):
+    def __init__(self, num_features, axis=-1, eps=BN_EPS):
         super().__init__()
         self.axis = axis
+        self.eps = eps
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer('running_mean', torch.zeros(num_features))
@@ -82,6 +83,6 @@ class BatchNorm(nn.Module):
 
     def forward(self, x):
         s = self._shape(x)
-        mul = (torch.rsqrt(self.running_var + BN_EPS) * self.weight).reshape(s)
+        mul = (torch.rsqrt(self.running_var + self.eps) * self.weight).reshape(s)
         y = (x.to(torch.float32) - self.running_mean.reshape(s)) * mul
         return y + self.bias.reshape(s)

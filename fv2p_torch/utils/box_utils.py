@@ -1,6 +1,8 @@
 """3D box geometry (reference ``pcdet/utils/box_utils.py``). Boxes are
 (N, 7): [x, y, z, dx, dy, dz, heading] with (x, y, z) the box center and
 heading a CCW rotation about +z."""
+import math
+
 import torch
 
 from .common_utils import device_constant
@@ -38,3 +40,23 @@ def boxes_to_CTcorners_3d(boxes3d):
     """Canonical (un-rotated, un-translated) corners (N, 8, 3) for the
     corner-geometry stream."""
     return boxes3d[:, None, 3:6] * _template(boxes3d, 8, 3)[None]
+
+
+def decode_rot_binres(pred_reg, num_head_bin=None):
+    """Bin + residual heading decode: pred_reg (N, 2 * bins) -> (N, 1) in
+    (-pi, pi]. Bin centers at k * (2 pi / bins), the residual scaled by half
+    a bin; the first of equal bin scores wins, and the wrap is a floor
+    modulo (``torch.remainder``, as JAX's ``%``)."""
+    n, c = pred_reg.shape
+    if num_head_bin is None:
+        num_head_bin = c // 2
+    bins = pred_reg[:, :num_head_bin]
+    res = pred_reg[:, num_head_bin:2 * num_head_bin]
+    ry_bin = torch.argmax(bins, dim=1)
+    ry_res_norm = torch.gather(res, 1, ry_bin[:, None])[:, 0]
+    angle_per_class = (2 * math.pi) / num_head_bin
+    ry_res = ry_res_norm * (angle_per_class / 2)
+    ry = torch.remainder(ry_bin.to(pred_reg.dtype) * angle_per_class + ry_res,
+                         2 * math.pi)
+    ry = torch.where(ry > math.pi, ry - 2 * math.pi, ry)
+    return ry.reshape(n, 1)

@@ -9,7 +9,8 @@ one torch submodule (``a/b/c`` -> ``a.b.c``):
   kernel (1, 1, I, O) also maps onto a ``Dense``;
 * ``Conv`` kernel (kH, kW, I, O) -> (O, I, kH, kW);
 * ``ConvTranspose`` kernel (kH, kW, I, O) -> spatially flipped, (I, O, kH, kW);
-* sparse-conv kernels (K, Cin, Cout) stay as they are;
+* sparse-conv kernels and the deformable conv's own kernel, both
+  (K, Cin, Cout), stay as they are;
 * BatchNorm ``scale``/``bias`` + ``batch_stats`` ``mean``/``var`` -> weight,
   bias, running_mean, running_var.
 
@@ -17,7 +18,11 @@ Any flax leaf without a torch home, or torch tensor left unfilled, raises.
 
 ``init_random_(model, seed)`` draws weights from a ``torch.Generator``: the
 same initialisers as the flax modules (LeCun normal kernels, zero biases,
-identity BatchNorm), so a smoke run's activations keep realistic scales.
+identity BatchNorm). The deformable blocks' offset convs are drawn like
+every other conv, not zeroed as flax does: zero offsets would make a DCN a
+plain conv. ``calibrate_batchnorm_(model, batch)`` then sets the BatchNorm
+statistics from one forward, so that deep models keep unit-scale
+activations.
 """
 import math
 
@@ -25,6 +30,7 @@ import numpy as np
 import torch
 
 from .models.layers import BatchNorm, ConvTranspose2d, Dense
+from .ops.dcn import MdeformConvBlock
 from .ops.sparse.conv import MaskedBatchNorm, _SparseConvBase
 
 
@@ -46,7 +52,7 @@ def _converted(module, leaf, arr):
         return 'bias', arr
     if leaf != 'kernel':
         raise KeyError(leaf)
-    if isinstance(module, _SparseConvBase):
+    if isinstance(module, (_SparseConvBase, MdeformConvBlock)):
         return 'kernel', arr
     if isinstance(module, Dense):
         return 'weight', arr.reshape(arr.shape[-2], arr.shape[-1]).T
@@ -96,8 +102,8 @@ def init_random_(model, seed=0):
             module.running_mean.zero_()
             module.running_var.fill_(1.0)
             continue
-        if isinstance(module, _SparseConvBase):
-            w = module.kernel
+        if isinstance(module, (_SparseConvBase, MdeformConvBlock)):
+            w = module.kernel                       # (K, Cin, Cout)
             fan_in = w.shape[0] * w.shape[1]
         elif isinstance(module, ConvTranspose2d):
             w = module.weight                       # (I, O, kH, kW)
@@ -109,6 +115,34 @@ def init_random_(model, seed=0):
             continue
         std = 0.001 if name.endswith('conv_box') else 1.0 / math.sqrt(fan_in)
         w.copy_(torch.randn(w.shape, generator=gen) * std)
-        if module.bias is not None:
+        if getattr(module, 'bias', None) is not None:
             module.bias.fill_(-math.log(99.0) if name.endswith('conv_cls') else 0.0)
+    return model
+
+
+@torch.no_grad()
+def calibrate_batchnorm_(model, batch_dict):
+    """Set every BatchNorm's running statistics to those of its input in one
+    forward over ``batch_dict`` (valid voxel rows only for the sparse ones),
+    layer after layer, so each sees its calibrated predecessors; returns the
+    model. Seeded weights with identity statistics shrink the activations
+    at every conv + ReLU: through MGAF's 40 of them its heat-map logits fall
+    to ~1e-5, under any score threshold. Calibrated, every BatchNorm puts
+    out zero mean and unit variance, as trained statistics would."""
+    def calibrate(module, args):
+        x = args[0].float()
+        if isinstance(module, MaskedBatchNorm):
+            rows = x[args[1]]
+        else:
+            rows = x.movedim(module.axis, -1).reshape(-1, x.shape[module.axis])
+        module.running_mean.copy_(rows.mean(0))
+        module.running_var.copy_(rows.var(0, unbiased=False))
+
+    handles = [m.register_forward_pre_hook(calibrate) for m in model.modules()
+               if isinstance(m, (BatchNorm, MaskedBatchNorm))]
+    try:
+        model(dict(batch_dict))
+    finally:
+        for h in handles:
+            h.remove()
     return model

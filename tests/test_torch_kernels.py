@@ -167,6 +167,61 @@ def test_b1_upper_triangle_is_the_full_matrix_above_the_diagonal(n):
     np.testing.assert_allclose(upper[i < j], ref[i < j], rtol=0, atol=1e-4)
 
 
+def mgaf_extent_boxes(rng, normal, far):
+    """Boxes with the extents MGAF's raw dim decode gives (no exp): negative,
+    zero and mixed-sign dx and dy, one per extent pair, each on the center
+    of a box of ``normal`` (near) or 60 m beyond every box (far)."""
+    extents = np.array([(-3.0, 1.5), (2.5, -1.2), (-2.0, -1.6), (0.0, 1.5),
+                        (1.8, 0.0), (0.0, 0.0), (-1e-3, 2.0), (0.0, -1.0),
+                        (-4.0, -0.5)], np.float32)
+    out = normal[:len(extents)].copy()
+    out[:, 3:5] = extents
+    out[:, :2] += rng.uniform(-0.4, 0.4, (len(extents), 2))
+    if far:
+        out[:, 0] += 60.0
+    return out
+
+
+@pytest.mark.parametrize('far', [False, True], ids=['near', 'far'])
+def test_b1_negative_and_zero_extents_match_pallas(far):
+    """Plain version against the Pallas kernel (interpret mode) and the JAX
+    IoU for such boxes, as rows, as columns and within one set (the NMS
+    check). They are not all 0.0: a row box with one negative extent is a
+    clockwise quad, whose clip against a box it overlaps has an area, and a
+    size-0 column box returns the row box's area, near or far. Apart from
+    that, far pairs are exactly 0.0, which is what the CUDA kernel's cull
+    gives (it never culls a box with a null edge)."""
+    rng = np.random.RandomState(24)
+    normal = random_boxes(rng, 12, extent=6.0)
+    odd = mgaf_extent_boxes(rng, normal, far)
+    mixed = np.concatenate([normal, odd])
+    for a, b in ((odd, normal), (normal, odd), (mixed, mixed)):
+        ca = jax_iou3d._bev_corners_ccw(jnp.asarray(a))
+        cb = jax_iou3d._bev_corners_ccw(jnp.asarray(b))
+        pallas = np.asarray(jax_overlap_matrix(ca, cb))     # interpret on CPU
+        got = overlap_matrix_plain(iou3d._bev_corners_ccw(t(a)),
+                                   iou3d._bev_corners_ccw(t(b))).numpy()
+        np.testing.assert_allclose(got, pallas, rtol=0, atol=1e-4)
+        ref = np.asarray(jax_iou3d.boxes_iou_bev(jnp.asarray(a), jnp.asarray(b)))
+        iou = iou_bev_plain(t(a), t(b)).numpy()
+        np.testing.assert_allclose(iou, ref, rtol=1e-5, atol=1e-4)
+    n = len(normal)
+    cross = got[n:, :n]                              # odd rows x normal columns
+    point = (odd[:, 3] == 0) & (odd[:, 4] == 0)
+    np.testing.assert_allclose(got[:n, n:][:, point],
+                               np.repeat(normal[:, 3:4] * normal[:, 4:5],
+                                         point.sum(), 1), rtol=1e-5)
+    if far:
+        assert (cross == 0.0).all() and (pallas[n:, :n] == 0.0).all()
+        assert (got[:n, n:][:, ~point] == 0.0).all()
+        assert (pallas[:n, n:][:, ~point] == 0.0).all()
+    else:
+        assert (cross > 0).any() and (got[:n, n:] > 0).any()
+    upper = iou_bev_upper_plain(t(mixed)).numpy()
+    np.testing.assert_array_equal(upper[np.triu_indices(len(mixed), 1)],
+                                  iou[np.triu_indices(len(mixed), 1)])
+
+
 @pytest.mark.parametrize('n,post_max,thresh', [(300, 50, 0.3),
                                                 (2200, 120, 0.2)])
 def test_nms_rotated_matches_jax(n, post_max, thresh):

@@ -5,20 +5,30 @@ a CUDA card only) each kernel matches its plain version."""
 import ast
 from pathlib import Path
 
+import copy
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from fv2p_tpu.models import build_network as jax_build_network
 from fv2p_tpu.ops.sparse.conv import sparse_conv_apply as jax_sparse_conv_apply
 
 import fv2p_torch.models as torch_models
 from fv2p_torch.config import EasyDict, cfg_from_yaml_file
 from fv2p_torch.datasets import dataset_meta_from_cfg
+from fv2p_torch.ops.dcn import MdeformConvBlock
 from fv2p_torch.ops.sparse.conv import sparse_conv_apply
-from fv2p_torch.weights import init_random_, load_flax_variables
+from fv2p_torch.models.layers import BatchNorm
+from fv2p_torch.ops.sparse.conv import MaskedBatchNorm
+from fv2p_torch.utils.synthetic import batch_to_torch
+from fv2p_torch.weights import (calibrate_batchnorm_, init_random_,
+                                load_flax_variables)
 from tests.test_fv2p_model import TINY_FV2P_CFG
-from tests.test_mgaf_model import TINY_DATA_CFG
+from tests.test_mgaf_model import TINY_DATA_CFG, TINY_MODEL_CFG
+from tests.test_torch_model import make_rulebook_batches, to_jax
 
 REPO = Path(__file__).resolve().parent.parent
 FORBIDDEN = ('jax', 'jaxlib', 'flax', 'fv2p_tpu')
@@ -51,7 +61,7 @@ def test_build_network_without_device_needs_cuda(monkeypatch):
 
 def test_unported_detector_raises():
     meta = dataset_meta_from_cfg(TINY_DATA_CFG, 'train')
-    cfg = EasyDict(dict(TINY_FV2P_CFG, NAME='MGAF3DSSD'))
+    cfg = EasyDict(dict(TINY_FV2P_CFG, NAME='PVRCNN'))
     with pytest.raises(NotImplementedError, match='ROADMAP'):
         torch_models.build_network(cfg, 1, ['Car'], meta, device='cpu')
 
@@ -70,6 +80,109 @@ def test_kitti_fv2p_yaml_builds_at_full_width():
     assert model.dense_head.anchors_flat.shape == (176 * 200 * 6, 7)
     n_params = sum(p.numel() for p in model.parameters())
     assert 5e6 < n_params < 5e7
+
+
+MGAF_YAMLS = ('kitti_models/MGAF-3DSSD/mgaf-3dssd.yaml',
+              'kitti_models/MGAF-3DSSD/mgaf-3dssd_3classes.yaml',
+              'waymo_models/MGAF-3DSSD/waymo_mgaf-3dssd_e36.yaml')
+
+
+def _jax_param_count(model_cfg, class_names, num_point_features):
+    """Parameters of the JAX model of the same config, from an abstract init
+    on the tiny batch with the config's point features (no parameter shape
+    depends on the grid)."""
+    cfg = copy.deepcopy(model_cfg)
+    cfg.DENSE_HEAD.NUM_INFERENCE_SAMPLES = 10        # the tiny map has 64 cells
+    jax_np, _, meta = make_rulebook_batches()
+    v = jax_np['voxels']
+    jax_np['voxels'] = np.pad(v, ((0, 0),) * 3 + ((0, num_point_features - v.shape[-1]),))
+    meta = dict(meta, num_point_features=num_point_features)
+    jmodel = jax_build_network(cfg, num_class=len(class_names),
+                               class_names=class_names, dataset_meta=meta)
+    shapes = jax.eval_shape(lambda b: jmodel.init(jax.random.PRNGKey(0), b),
+                            dict(to_jax(jax_np)))
+    return sum(int(np.prod(x.shape))
+               for x in jax.tree_util.tree_leaves(shapes['params']))
+
+
+@pytest.mark.parametrize('yaml_path', MGAF_YAMLS)
+def test_mgaf_yaml_builds_at_full_width(yaml_path):
+    cfg = EasyDict()
+    cfg_from_yaml_file(str(REPO / 'tools/cfgs' / yaml_path), cfg)
+    meta = dataset_meta_from_cfg(cfg.DATA_CONFIG, 'test')
+    model = torch_models.build_network(cfg.MODEL, len(cfg.CLASS_NAMES),
+                                       cfg.CLASS_NAMES, meta,
+                                       compute_dtype=torch.bfloat16,
+                                       device='cpu')
+    init_random_(model, seed=0)
+    n_params = sum(p.numel() for p in model.parameters())
+    assert n_params == _jax_param_count(cfg.MODEL, cfg.CLASS_NAMES,
+                                        meta['num_point_features'])
+    dcns = {n: m for n, m in model.named_modules() if isinstance(m, MdeformConvBlock)}
+    assert sorted(dcns) == ['backbone_2d.deblock0.dcn', 'backbone_2d.deblock1.dcn',
+                            'backbone_2d.deblock2.dcn', 'dense_head.feature_adapt.mdcn']
+    assert [tuple(m.kernel.shape) for m in dcns.values()] == [
+        (9, 128, 128), (9, 256, 256), (9, 256, 256), (9, 256, 256)]
+    assert dcns['dense_head.feature_adapt.mdcn'].deformable_groups == 4
+    # seeded offsets: the deformable convs sample off the grid
+    assert all(m.conv_offset_mask.weight.abs().max() > 0 for m in dcns.values())
+    # the head reads the 768-channel BEV map at stride 8
+    nx, ny, _ = meta['grid_size']
+    x = torch.zeros((1, ny // 8, nx // 8, 256))
+    shapes = [m.BatchNorm_1.weight.shape[0] for m in
+              (model.backbone_2d.deblock0, model.backbone_2d.deblock1,
+               model.backbone_2d.deblock2)]
+    assert sum(shapes) == model.dense_head.shared_conv0.in_channels == 768
+    with torch.no_grad():
+        bd = model.backbone_2d({'spatial_features': x.to(torch.float32)})
+    assert tuple(bd['spatial_features_2d'].shape) == (1, ny // 8, nx // 8, 768)
+    assert model.dense_head.hm_out.out_channels == len(cfg.CLASS_NAMES)
+
+
+def test_calibrated_batchnorms_put_out_zero_mean_unit_variance():
+    """After calibrate_batchnorm_, a second forward over the same batch feeds
+    every BatchNorm the input it was calibrated on: each channel comes out
+    with mean 0 and variance var / (var + eps), over the valid voxel rows for
+    the sparse ones."""
+    _, torch_np, meta = make_rulebook_batches()
+    batch = batch_to_torch(torch_np, 'cpu')
+    model = init_random_(torch_models.build_network(
+        TINY_MODEL_CFG, 1, ['Car'], meta, device='cpu'), seed=0)
+    calibrate_batchnorm_(model, batch)
+    seen = []
+
+    def check(module, args, out):
+        x = out.float()
+        rows = (x[args[1]] if isinstance(module, MaskedBatchNorm)
+                else x.movedim(module.axis, -1).reshape(-1, x.shape[module.axis]))
+        var = module.running_var
+        eps = module.eps if isinstance(module, BatchNorm) else 1e-3
+        torch.testing.assert_close(rows.mean(0), torch.zeros_like(var),
+                                   rtol=0, atol=1e-4)
+        torch.testing.assert_close(rows.var(0, unbiased=False), var / (var + eps),
+                                   rtol=1e-3, atol=1e-6)
+        seen.append(module)
+
+    bns = [m for m in model.modules() if isinstance(m, (BatchNorm, MaskedBatchNorm))]
+    handles = [m.register_forward_hook(check) for m in bns]
+    model(dict(batch))
+    for h in handles:
+        h.remove()
+    assert len(seen) == len(bns) > 30
+    assert not any(torch.equal(m.running_var, torch.ones_like(m.running_var))
+                   for m in bns)
+
+
+def test_weight_loader_rejects_a_stray_dcn_leaf():
+    """A deformable block's kernel where the config builds none (FV2P's
+    deblocks have no DCN) has no torch home."""
+    meta = dataset_meta_from_cfg(TINY_DATA_CFG, 'train')
+    model = torch_models.build_network(TINY_FV2P_CFG, 1, ['Car'], meta,
+                                       device='cpu')
+    stray = {'params': {'backbone_2d': {'deblock0': {'dcn': {
+        'kernel': np.zeros((9, 32, 32), np.float32)}}}}}
+    with pytest.raises(ValueError, match='deblock0/dcn/kernel'):
+        load_flax_variables(model, stray)
 
 
 def test_weight_loader_rejects_unmatched_and_unfilled():
