@@ -31,7 +31,8 @@ For each model it
 then holds all four kernels against their plain versions on small seeded
 corner cases (rows without valid points, ties, ball counts at and around
 nsample, unsorted sources, touching, degenerate and negative-extent boxes,
-ragged sizes), with the same comparisons. Then the times, all before any use
+ragged sizes, B2 at 24000 points with an invalid tail and at its 24576
+limit), with the same comparisons. Then the times, all before any use
 of torch.profiler: each kernel's calls of one FV2P forward with CUDA events
 beside its plain version, the least time the card could take for the same
 work, (B3) torch.cdist + topk as a library yardstick and the least share of
@@ -44,6 +45,24 @@ under the profiler and CUDA's sync debug mode: the device's busy share of one
 pass of each model, each kernel's own device time, the kernels one IoU call
 queues, and the calls in one forward that make the host wait for the card,
 by source line.
+
+Training comes after the timed forwards and before the profiler: FV2P in
+train mode at full width (batch 2, the 16000-voxel train cap with 14000
+filled, each scan padded to the config's 24000-point cap, the six simulated
+cars of each scan as gt, bf16 compute and f32 parameters, adam_onecycle over
+1000 steps). First one f32 step (no TF32) through the kernels and through
+the plain versions from the same weights and generators: FPS picks and
+proposal-NMS keeps identical, loss terms within 1e-5 relative, every
+gradient within 1e-4 max|g| + 1e-7 (the biases a train-mode BatchNorm
+normalises away, whose true gradient is 0, as noise on both sides). Then 2
+warm-up and 10 timed bf16 steps, each counted (B1, B2 and B3 launch on
+every step, B4 never: training groups without it), with CUDA events around
+forward+loss, backward and the optimizer step, every loss term finite; one
+more step whose kernel calls are held against the plain versions and timed
+(B2 beside its chain floor at 24000 points); last, under the sync debug
+mode and the profiler, the host waits and the card's busy share of a step.
+The train record goes to chiprun_out/chip_smoke.json under `train`, and the
+`kernels` line gives each kernel's train-path launches beside the eval ones.
 
 Exits non-zero on any failure, and without a CUDA card. The second-to-last
 lines are a JSON ``kernels`` object (FV2P's path) and the nvidia-smi name and
@@ -65,6 +84,11 @@ CFG = REPO / 'tools' / 'cfgs' / 'kitti_models' / 'FV2P' / 'fv2p.yaml'
 MGAF_CFG = REPO / 'tools' / 'cfgs' / 'kitti_models' / 'MGAF-3DSSD' / 'mgaf-3dssd.yaml'
 OUT_DIR = REPO / 'chiprun_out'
 BATCH, N_CAP, N_FILL, N_POINTS, SEED = 4, 16000, 14000, 18000, 0
+# training (fv2p.yaml OPTIMIZATION and DATA_CONFIG): batch 2 a card, scans
+# padded to MAX_POINTS_PER_SCAN, adam_onecycle over 1000 steps as
+# tools/bench_train.py schedules it
+TRAIN_BATCH, TRAIN_POINTS, TRAIN_TOTAL_STEPS = 2, 24000, 1000
+TRAIN_WARMUP, TRAIN_TIMED = 2, 10
 
 # H100 SXM data sheet (dense): HBM rate, f32 outside the tensor cores, bf16
 HBM_BYTES_S, F32_OPS_S, BF16_OPS_S = 3.35e12, 67e12, 989e12
@@ -439,6 +463,13 @@ def fps_corner_cases():
         valid = rng.rand(2, n) < 0.8
         valid[0] = True
         cases.append(case(f'N = {n}', rng.randn(2, n, 3) * 20, valid, k))
+    # the train path's scans (each block keeps only its own points): the
+    # 24000-point cap with a padded tail, and the kernel's limit
+    for n, tail, k in ((24000, 1500, 2048), (24576, 0, 1024)):
+        valid = np.ones((2, n), bool)
+        valid[:, n - tail:] = False
+        cases.append(case(f'N = {n}, {tail} invalid rows at the end',
+                          rng.randn(2, n, 3) * 20, valid, k))
     return cases
 
 
@@ -709,15 +740,15 @@ def timed_forwards(model, batch, n):
     return ms
 
 
-def profiled_forward(model, batch):
-    """One forward under torch.profiler: the device's busy share of the
-    wall time (kernel and copy time on the card over host time) and the
-    kernels that take the most device time."""
+def profiled(fn):
+    """One fn() (a forward, a train step) under torch.profiler: the device's
+    busy share of the wall time (kernel and copy time on the card over host
+    time) and the kernels that take the most device time."""
     from torch.profiler import ProfilerActivity, profile
     sync()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        forward(model, batch)
+        fn()
         sync()
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_name = {}
@@ -730,16 +761,17 @@ def profiled_forward(model, batch):
             'busy_share': busy_ms / wall_ms, 'top_device_ms': dict(top)}
 
 
-def host_syncs(model, batch):
-    """Calls in one forward that make the host wait for the card (CUDA
-    sync debug mode), counted by the source line that made them."""
+def host_syncs(fn):
+    """Calls in one fn() (a forward, a train step) that make the host wait
+    for the card (CUDA sync debug mode), counted by the source line that
+    made them."""
     import warnings
     sites = {}
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter('always')
         torch.cuda.set_sync_debug_mode('warn')
         try:
-            forward(model, batch)
+            fn()
             sync()
         finally:
             torch.cuda.set_sync_debug_mode('default')
@@ -753,9 +785,10 @@ def host_syncs(model, batch):
     return sum(sites.values()), dict(sorted(sites.items(), key=lambda kv: -kv[1]))
 
 
-def module_times(model, batch):
-    """ms per top-level module of one forward (CUDA events), plus the
-    post-processing that follows the last of them."""
+def module_times(model, run, tail='post_processing'):
+    """ms per top-level module of one run() (CUDA events): a forward, whose
+    post-processing follows the last module, or a train step, whose loss,
+    backward and optimizer step follow it (`tail` names that stretch)."""
     from fv2p_torch.models.detectors.detector3d_template import MODULE_TOPOLOGY
     events = {}
     handles = []
@@ -769,15 +802,15 @@ def module_times(model, batch):
         handles.append(mod.register_forward_hook(lambda m, a, o, e=ev: e[1].record()))
     end = torch.cuda.Event(enable_timing=True)
     sync()
-    out = forward(model, batch)
+    run()
     end.record()
     sync()
     for h in handles:
         h.remove()
     times = {slot: e[0].elapsed_time(e[1]) for slot, e in events.items()}
     last = list(events.values())[-1]
-    times['post_processing'] = last[1].elapsed_time(end)
-    return times, out
+    times[tail] = last[1].elapsed_time(end)
+    return times
 
 
 def forward_stats(model, batch, label):
@@ -788,7 +821,7 @@ def forward_stats(model, batch, label):
     timed_forwards(model, batch, 2)                      # warm-up
     fwd = np.array(timed_forwards(model, batch, FORWARD_REPS))
     q1, med, q3 = (float(x) for x in np.percentile(fwd, [25, 50, 75]))
-    passes = [module_times(model, batch)[0] for _ in range(MODULE_REPS)]
+    passes = [module_times(model, lambda: forward(model, batch)) for _ in range(MODULE_REPS)]
     per_module = {m: float(np.median([p[m] for p in passes])) for m in passes[0]}
     torch.cuda.reset_peak_memory_stats()
     forward(model, batch)
@@ -808,8 +841,8 @@ def forward_stats(model, batch, label):
 def profile_stats(model, batch, label):
     """The device's busy share of one profiled pass and the host waits of one
     forward by source line."""
-    prof = profiled_forward(model, batch)
-    n_syncs, sync_sites = host_syncs(model, batch)
+    prof = profiled(lambda: forward(model, batch))
+    n_syncs, sync_sites = host_syncs(lambda: forward(model, batch))
     log(f'# {label}: device busy {prof["busy_share"]:.1%} of a profiled pass '
         f'({prof["device_busy_ms"]:.2f} of {prof["wall_ms"]:.2f} ms)')
     log(f'# {label} host waits in one forward: {n_syncs}; by line: {sync_sites}')
@@ -919,6 +952,235 @@ def dcn_times(model, batch):
         f'{rec["bound_ops_ms"]:.4f}); {macs / 1e9:.1f} GMAC; device memory '
         f'beyond the inputs, per call (GiB): {[round(x, 3) for x in peak_gib]}')
     return rec
+
+
+# ----------------------------------------------------------------- training
+
+def train_inputs(meta):
+    """The train batch: batch 2, the 16000-voxel train cap with 14000 filled,
+    each scan's points padded to the config's 24000-point cap as the dataset
+    pads them, and each scan's six simulated cars as gt."""
+    from fv2p_torch.utils.synthetic import batch_to_torch, synthetic_batch_np
+    t0 = time.perf_counter()
+    batch_np = synthetic_batch_np(meta, TRAIN_BATCH, N_CAP, N_FILL, TRAIN_POINTS,
+                                  seed=SEED, gt='scan', pad_points=True)
+    host_s = time.perf_counter() - t0
+    return batch_to_torch(batch_np, 'cuda'), host_s
+
+
+def make_train_step(cfg, meta, dtype):
+    from fv2p_torch.train_utils.train_state import TrainStep
+    return TrainStep(make_model(cfg, meta, dtype), cfg.OPTIMIZATION, TRAIN_TOTAL_STEPS)
+
+
+def counted_train_step(kcuda, step, batch, events=None, keep_out=False):
+    """One train step with the launch counts set to 0 just before it and
+    read just after; with `events` (four CUDA events) around forward+loss,
+    backward and the optimizer step. Returns (loss terms on the card,
+    launches, the forward's batch dict if keep_out)."""
+    kcuda.reset_launch_counts()
+    if events:
+        events[0].record()
+    loss, terms, out = step.forward_loss(batch)
+    if events:
+        events[1].record()
+    step.backward(loss)
+    if events:
+        events[2].record()
+    terms = {k: v.detach() for k, v in terms.items()}
+    terms['grad_norm'] = step.update()
+    if events:
+        events[3].record()
+    launches = dict(kcuda.launch_counts)
+    for name in ('rotated_iou', 'fps', 'three_nn'):
+        if launches[name] == 0:
+            fail(f'train step {step.step_count - 1}: kernel {name} was not launched')
+    if launches['sa_group'] != 0:
+        fail(f'train step {step.step_count - 1}: B4 (sa_group) launched '
+             f'{launches["sa_group"]} times; training groups without it')
+    return terms, launches, (out if keep_out else None)
+
+
+def train_targets(out):
+    """Foreground counts of one train forward: positive anchors, foreground
+    keypoints, foreground (regressed) RoIs, and the sampled RoIs."""
+    return {'positive_anchors': int((out['anchor_head_ret']['box_cls_labels'] > 0).sum()),
+            'foreground_keypoints': int((out['point_head_ret']['point_cls_labels'] > 0).sum()),
+            'foreground_rois': int(out['roi_head_ret']['reg_valid_mask'].sum()),
+            'sampled_rois': int(out['roi_head_ret']['reg_valid_mask'].numel())}
+
+
+def timed_train_steps(kcuda, step, batch):
+    """TRAIN_WARMUP + TRAIN_TIMED bf16 steps, each counted; CUDA events
+    around each phase of the timed ones. Every loss term of every step must
+    be finite."""
+    terms_all, launches_all, rows = [], [], []
+    first = None
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(TRAIN_WARMUP + TRAIN_TIMED):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        terms, launches, out = counted_train_step(kcuda, step, batch, ev, keep_out=i == 0)
+        if i == 0:
+            first = train_targets(out)
+            del out
+        terms_all.append(terms)
+        launches_all.append(launches)
+        rows.append(ev)
+    sync()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    names = sorted(terms_all[0])
+    table = torch.stack([torch.stack([t[k].float() for k in names]) for t in terms_all]).cpu()
+    if not torch.isfinite(table).all():
+        bad = [(i, names[j]) for i, j in (~torch.isfinite(table)).nonzero().tolist()]
+        fail(f'train: non-finite loss terms (step, term): {bad}')
+    ms = {'forward_loss': [], 'backward': [], 'optimizer': [], 'step': []}
+    for ev in rows[TRAIN_WARMUP:]:
+        ms['forward_loss'].append(ev[0].elapsed_time(ev[1]))
+        ms['backward'].append(ev[1].elapsed_time(ev[2]))
+        ms['optimizer'].append(ev[2].elapsed_time(ev[3]))
+        ms['step'].append(ev[0].elapsed_time(ev[3]))
+    stats = {}
+    for key, vals in ms.items():
+        q1, med, q3 = (float(x) for x in np.percentile(vals, [25, 50, 75]))
+        stats[key] = {'median': med, 'q1': q1, 'q3': q3, 'all': vals}
+    return {'ms': stats, 'n_timed': TRAIN_TIMED,
+            'loss_terms': {k: table[:, j].tolist() for j, k in enumerate(names)},
+            'launches_per_step': launches_all, 'first_step_targets': first,
+            'peak_mem_gib': peak}
+
+
+def captured_train_calls(kernels, step, batch):
+    """One more counted step with every kernel call recorded (the calls the
+    train path makes, for the comparison with the plain versions)."""
+    from fv2p_torch.ops import cuda as kcuda
+    train_k = [Kernel(k.name, k.module, k.entries, k.source, k.replaces) for k in kernels]
+    with patched(train_k, capturing):
+        _, launches, _ = counted_train_step(kcuda, step, batch)
+    sync()
+    for k in train_k:
+        if launches[k.name] != len(k.calls):
+            fail(f'train {k.name}: {launches[k.name]} launches, {len(k.calls)} calls')
+    return {k.name: k for k in train_k}, launches
+
+
+def train_f32_compare(kernels, cfg, meta, batch):
+    """The first train step in f32 without TF32, from the same weights and
+    generators, through the kernels and through the plain versions: FPS
+    picks and proposal-NMS keeps identical, loss terms within 1e-5
+    relative, every gradient within 1e-4 max|g| + 1e-7. A bias that a
+    train-mode BatchNorm normalises (the sparse residual blocks' conv
+    biases) has a true gradient of 0: there both sides must be noise under
+    1e-5 of the same conv's kernel gradient. Gradients are not bit-identical:
+    autograd's scatter-adds on the card are unordered."""
+    from fv2p_torch.models.roi_heads import iouguided_roi_head as roi_mod
+    from fv2p_torch.ops import pointops
+
+    def run(route):
+        picks, props = [], []
+        fps_fn, prop_fn = pointops.fps, roi_mod.proposal_layer
+
+        def fps_rec(*a):
+            picks.append(fps_fn(*a))
+            return picks[-1]
+
+        def prop_rec(*a):
+            props.append(prop_fn(*a))
+            return props[-1]
+
+        pointops.fps, roi_mod.proposal_layer = fps_rec, prop_rec
+        try:
+            with contextlib.ExitStack() as stack:
+                if route == 'plain':
+                    stack.enter_context(patched(kernels, plain_route))
+                loss, terms, out = step.forward_loss(batch)
+                step.backward(loss)
+            sync()
+        finally:
+            pointops.fps, roi_mod.proposal_layer = fps_fn, prop_fn
+        grads = {n: p.grad.detach().clone() for n, p in step.model.named_parameters()
+                 if p.grad is not None}
+        terms = {k: float(v.detach()) for k, v in terms.items()}
+        return terms, grads, picks, props, out['roi_head_ret']['rois'].detach()
+
+    with full_f32():
+        step = make_train_step(cfg, meta, None)
+        tk, gk, pk, nk, rk = run('kernel')
+        tp, gp, pp, np_, rp = run('plain')
+    if len(pk) != 1 or not torch.equal(pk[0], pp[0]):
+        fail('train f32 step: FPS picks differ between kernel and plain')
+    for a, b in zip(nk[0], np_[0]):
+        if not torch.equal(a, b):
+            fail('train f32 step: proposal NMS keeps differ between kernel and plain')
+    if not torch.equal(rk, rp):
+        fail('train f32 step: sampled RoIs differ between kernel and plain')
+    rel = {k: abs(tk[k] - tp[k]) / max(abs(tp[k]), 1e-30) for k in tp}
+    for k, r in rel.items():
+        if r > 1e-5:
+            fail(f'train f32 step: loss term {k} differs by {r} relative > 1e-5')
+    if sorted(gk) != sorted(gp):
+        fail('train f32 step: kernel and plain routes give gradients to other parameters')
+    worst, zero_biases = 0.0, 0
+    for name, g in gp.items():
+        ref_max = float(g.abs().max())
+        err = float((gk[name] - g).abs().max())
+        if zero_by_construction(name):
+            scale = float(gp[name[:-len('bias')] + 'kernel'].abs().max())
+            if max(ref_max, float(gk[name].abs().max())) > 1e-5 * scale:
+                fail(f'train f32 step: {name} should be noise, is {ref_max}')
+            zero_biases += 1
+            continue
+        if err > 1e-4 * ref_max + 1e-7:
+            fail(f'train f32 step: gradient {name} differs by {err} > 1e-4 * {ref_max} + 1e-7')
+        worst = max(worst, err / (ref_max + 1e-30))
+    log(f'# train f32 step, kernels vs plain versions: FPS picks and proposal keeps '
+        f'identical; loss terms max relative difference {max(rel.values()):.3g}; '
+        f'{len(gp)} gradient tensors, worst error {worst:.3g} of the tensor\'s max '
+        f'({zero_biases} biases normalised away held to noise)')
+    del step
+    torch.cuda.empty_cache()
+    return {'loss_rel_diff': rel, 'grad_worst_rel_to_max': worst,
+            'grad_tensors': len(gp), 'zero_by_construction_biases': zero_biases,
+            'loss_terms_kernel': tk}
+
+
+def zero_by_construction(name):
+    """The conv biases of the sparse residual blocks: a train-mode
+    BatchNorm follows each, so their true gradient is 0."""
+    return name.startswith('backbone_3d.res') and '.conv' in name and name.endswith('.bias')
+
+
+def train_kernel_rows(train_calls, launches, rows):
+    """The train path's calls of each kernel against the plain versions, and
+    their times, added to each kernel's row of the `kernels` line (B4 has
+    none: training does not launch it)."""
+    from fv2p_torch.ops.cuda import fps
+    bounds = {'rotated_iou': bound_rotated_iou, 'fps': bound_fps,
+              'three_nn': bound_three_nn}
+    for row in rows:
+        k = train_calls[row['name']]
+        row['train_launches'] = launches[k.name]
+        if not k.calls:
+            continue
+        err, ref_max = compare(k)
+        b_bytes, b_ops = (sum(x) for x in zip(*(bounds[k.name](a) for a in k.calls)))
+        row.update(
+            train_max_abs_err=err, train_ref_max=ref_max,
+            train_ms=time_events(lambda: [k.launch(a) for a in k.calls],
+                                 reps=3 if k.name == 'fps' else 10),
+            train_plain_ms=time_events(lambda: [k.plain(a) for a in k.calls], reps=1,
+                                       warmup=0 if k.name == 'fps' else 1),
+            train_bound_ms=max(b_bytes, b_ops) * 1e3,
+            train_bound_by='bytes' if b_bytes >= b_ops else 'operations')
+        if k.name == 'fps':
+            row['train_chain_floor_ms'] = time_events(
+                lambda: [fps.fps_chain_floor_cuda(*a) for _, a in k.calls], reps=3)
+            row['train_shapes'] = [list(a[0].shape) + [a[2]] for _, a in k.calls]
+        log(f'# train {k.name}: {row["train_launches"]} launches a step, agrees with '
+            f'the plain version (max abs error {err}); {row["train_ms"]:.3f} ms kernel, '
+            f'{row["train_plain_ms"]:.3f} ms plain, bound {row["train_bound_ms"]:.4f} ms '
+            f'({row["train_bound_by"]})'
+            + (f', chain floor {row["train_chain_floor_ms"]:.3f} ms'
+               if k.name == 'fps' else ''))
 
 
 def main():
@@ -1158,9 +1420,43 @@ def main():
     mrec.update(forward_stats(mgaf, batch, 'mgaf'))
     mrec['dcn']['share_of_forward'] = mrec['dcn']['ms'] / mrec['forward_ms']['median']
 
+    # 9b. training: fv2p.yaml in train mode at batch 2 on 24000-point scans,
+    # bf16 compute and f32 parameters; the f32 step against the plain
+    # versions, then the timed steps (each counted: B1, B2, B3 launch, B4
+    # does not), then one more step whose kernel calls are held against
+    # the plain versions and timed
+    train_batch, train_host_s = train_inputs(meta)
+    trec = {'batch': TRAIN_BATCH, 'points_cap': TRAIN_POINTS,
+            'points_valid': train_batch['points_valid'].sum(1).tolist(),
+            'gt_boxes': int((train_batch['gt_boxes'][..., 7] > 0).sum()),
+            'batch_host_s': train_host_s, 'total_steps': TRAIN_TOTAL_STEPS}
+    trec['f32_kernel_vs_plain'] = train_f32_compare(kernels, cfg, meta, train_batch)
+    step = make_train_step(cfg, meta, torch.bfloat16)
+    trec.update(timed_train_steps(kcuda, step, train_batch))
+    tms = trec['ms']
+    log(f'# train bf16 step at batch {TRAIN_BATCH}, ms median (quartiles) of '
+        f'{TRAIN_TIMED}: ' + ', '.join(
+            f'{k} {v["median"]:.2f} ({v["q1"]:.2f}-{v["q3"]:.2f})' for k, v in tms.items())
+        + f'; peak device memory {trec["peak_mem_gib"]:.2f} GiB')
+    passes = [module_times(step.model, lambda: step.step(train_batch),
+                           tail='loss_backward_optimizer') for _ in range(MODULE_REPS)]
+    trec['per_module_ms'] = {m: float(np.median([p[m] for p in passes])) for m in passes[0]}
+    log(f'# train step per module (ms, median of {MODULE_REPS}; forward modules, then '
+        f'loss + backward + optimizer): {trec["per_module_ms"]}')
+    log(f'# train loss terms per step: {trec["loss_terms"]}')
+    log(f'# train launches per step: {trec["launches_per_step"]}')
+    log(f'# train first step targets: {trec["first_step_targets"]}')
+    train_calls, trec['launches'] = captured_train_calls(kernels, step, train_batch)
+    train_kernel_rows(train_calls, trec['launches'], rows)
+
     # 10. under the profiler and the sync debug mode, after every timed pass
     record.update(profile_stats(model, batch, 'fv2p'))
     mrec.update(profile_stats(mgaf, batch, 'mgaf'))
+    trec['host_syncs'], trec['host_sync_sites'] = host_syncs(lambda: step.step(train_batch))
+    trec['profile'] = profiled(lambda: step.step(train_batch))
+    log(f'# train step: device busy {trec["profile"]["busy_share"]:.1%} of a profiled '
+        f'step ({trec["profile"]["device_busy_ms"]:.2f} of {trec["profile"]["wall_ms"]:.2f} '
+        f'ms); host waits {trec["host_syncs"]}; by line: {trec["host_sync_sites"]}')
     # each kernel's calls once more under the profiler: the card's own time
     for k, row in zip(kernels, rows):
         row['device_ms'] = device_ms(lambda: [k.launch(a) for a in k.calls],
@@ -1177,7 +1473,7 @@ def main():
         f'{ {row["name"]: round(row["device_ms"], 4) for row in rows} }; '
         f'B1 on MGAF\'s calls {mrec["b1"]["device_ms"]:.4f}')
     record.update(launches=launches, kernels=rows, nvidia_smi=smi,
-                  valid_detections=n_valid, mgaf=mrec)
+                  valid_detections=n_valid, mgaf=mrec, train=trec)
 
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / 'chip_smoke.json').write_text(json.dumps(record, indent=1))

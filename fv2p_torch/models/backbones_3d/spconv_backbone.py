@@ -16,7 +16,9 @@ from ...ops.sparse.sparse_tensor import from_host_coords
 def _global_table(t, in_cap):
     """(B, K, cap_out) sample-local rows (-1 = missing) -> (B*cap_out, K)
     int64 rows into the source level (per-sample block size in_cap), with
-    missing neighbours at the zero row B*in_cap."""
+    missing neighbours at the zero row B*in_cap. An inverse table (B, K,
+    cap_in) of rows into the output level turns the same way, with in_cap
+    the output level's block size."""
     nb = t.shape[0]
     off = torch.arange(nb, device=t.device).view(nb, 1, 1) * in_cap
     t = t.to(torch.int64)
@@ -78,7 +80,10 @@ class VoxelResBackBone8x(nn.Module):
             return _global_table(rb[f'subm_{lvl}'], caps[lvl])
 
         def down(src, dst):
-            return _global_table(rb[f'down_{src}->{dst}'], caps[src])
+            """The strided layer's forward table and, for its backward, the
+            inverse table: for each source row and tap, the output row."""
+            return (_global_table(rb[f'down_{src}->{dst}'], caps[src]),
+                    _global_table(rb[f'down_inv_{src}->{dst}'], caps[dst]))
 
         nbr1 = subm('x_conv1')
         x = self.conv_input(st, nbr1)
@@ -86,25 +91,25 @@ class VoxelResBackBone8x(nn.Module):
         x_conv1 = self.res1b(x, nbr1)
 
         x = self.down2(x_conv1, out_level('x_conv2', s2),
-                       down('x_conv1', 'x_conv2'))
+                       *down('x_conv1', 'x_conv2'))
         nbr2 = subm('x_conv2')
         x = self.res2a(x, nbr2)
         x_conv2 = self.res2b(x, nbr2)
 
         x = self.down3(x_conv2, out_level('x_conv3', s3),
-                       down('x_conv2', 'x_conv3'))
+                       *down('x_conv2', 'x_conv3'))
         nbr3 = subm('x_conv3')
         x = self.res3a(x, nbr3)
         x_conv3 = self.res3b(x, nbr3)
 
         x = self.down4(x_conv3, out_level('x_conv4', s4),
-                       down('x_conv3', 'x_conv4'))
+                       *down('x_conv3', 'x_conv4'))
         nbr4 = subm('x_conv4')
         x = self.res4a(x, nbr4)
         x_conv4 = self.res4b(x, nbr4)
 
         out = self.conv_out(x_conv4, out_level('out', s5),
-                            down('x_conv4', 'out'))
+                            *down('x_conv4', 'out'))
 
         batch_dict.update({
             'encoded_spconv_tensor': out,

@@ -1,12 +1,15 @@
 """Config-driven detector assembly (counterpart of
 ``fv2p_tpu/models/detectors/detector3d_template.py``), restricted to the
-detectors and modules ported so far: FV2P and MGAF-3DSSD, in eval mode.
+detectors and modules ported so far: FV2P (inference and training) and
+MGAF-3DSSD (inference).
 
 Each of the 9 slots of the module topology is built iff its config key
 exists, and the forward runs the built slots in that order on one batch
-dict of tensors, then post-processes into fixed-shape (B, post_max)
-outputs. A slot or detector that is not ported raises NotImplementedError
-naming the ROADMAP queue."""
+dict of tensors. In eval mode it then post-processes into fixed-shape
+(B, post_max) outputs; in train mode it skips post-processing, keeps
+autograd on, and each head leaves its targets and predictions for
+``compute_training_loss``. A slot or detector that is not ported raises
+NotImplementedError naming the ROADMAP queue."""
 import torch
 from torch import nn
 
@@ -16,10 +19,10 @@ from ..backbones_2d.map_to_bev.height_compression import HeightCompression
 from ..backbones_3d.pfe.residual_v2p_decoder import ResidualVoxelToPointDecoder
 from ..backbones_3d.spconv_backbone import VoxelResBackBone8x
 from ..backbones_3d.vfe.mean_vfe import MeanVFE
-from ..dense_heads.anchor_head import AnchorHeadSingle
+from ..dense_heads.anchor_head import AnchorHeadSingle, anchor_head_loss
 from ..dense_heads.center_af_head import CenterAFHeadSingle
-from ..dense_heads.point_head_simple import PointHeadSimple
-from ..roi_heads.iouguided_roi_head import IoUGuidedRoIHead
+from ..dense_heads.point_head_simple import PointHeadSimple, point_head_loss
+from ..roi_heads.iouguided_roi_head import IoUGuidedRoIHead, roi_head_loss
 
 MODULE_TOPOLOGY = ['vfe', 'backbone_3d', 'map_to_bev_module', 'pfe',
                    'backbone_2d', 'dense_head', 'post_pfe', 'point_head',
@@ -122,13 +125,21 @@ class Detector3DTemplate(nn.Module):
         return [getattr(self, slot) for slot in MODULE_TOPOLOGY
                 if hasattr(self, slot)]
 
-    @torch.no_grad()
     def forward(self, batch_dict):
         if self.training:
-            raise _not_ported('training')
+            return self.train_forward(batch_dict)
+        with torch.no_grad():
+            for module in self.module_list():
+                batch_dict = module(batch_dict)
+            batch_dict.update(self.post_processing_withfgscores(batch_dict))
+        return batch_dict
+
+    def train_forward(self, batch_dict):
+        """The slots in train mode, with autograd and without
+        post-processing; ``batch_dict`` needs ``gt_boxes`` (B, M, 8) and may
+        carry ``generators`` ({'sampling', 'dropout'}: torch.Generator)."""
         for module in self.module_list():
             batch_dict = module(batch_dict)
-        batch_dict.update(self.post_processing_withfgscores(batch_dict))
         return batch_dict
 
     def post_processing_withfgscores(self, batch_dict):
@@ -179,9 +190,34 @@ class MGAF3DSSD(Detector3DTemplate):
     """Single-stage anchor-free detector: sparse trunk -> DCN BEV backbone ->
     CenterAF head (max-pool NMS + top-K decode) -> IoU-score-ranked NMS."""
 
+    def train_forward(self, batch_dict):
+        raise NotImplementedError(
+            'MGAF-3DSSD training is not in fv2p_torch yet (ROADMAP.md, queue A, '
+            'item 3: the DCN backward, center_target_assigner and '
+            'center_af_head_loss)')
+
 
 DETECTOR_REGISTRY = {'FromVoxelToPoint': FromVoxelToPoint,
                      'MGAF3DSSD': MGAF3DSSD}
+
+
+def compute_training_loss(model, batch_dict):
+    """The training loss of a train-mode forward's ``batch_dict``: for FV2P
+    the RPN, point-head and RCNN losses summed. Returns (loss, terms), every
+    term a 0-d tensor, ``terms['loss']`` the total."""
+    if not isinstance(model, FromVoxelToPoint):
+        raise _not_ported(f'training of {type(model).__name__}')
+    cfg = model.model_cfg
+    head = model.dense_head
+    rpn_loss, tb = anchor_head_loss(cfg.DENSE_HEAD, batch_dict['anchor_head_ret'],
+                                    head.anchors_flat, model.num_class)
+    point_loss, tb_p = point_head_loss(cfg.POINT_HEAD, batch_dict['point_head_ret'])
+    rcnn_loss, tb_r = roi_head_loss(cfg.ROI_HEAD, batch_dict['roi_head_ret'])
+    tb.update(tb_p)
+    tb.update(tb_r)
+    loss = rpn_loss + point_loss + rcnn_loss
+    tb['loss'] = loss
+    return loss, tb
 
 
 def build_detector(model_cfg, num_class, class_names, dataset_meta,

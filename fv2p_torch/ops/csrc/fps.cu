@@ -27,9 +27,17 @@
 //     shared memory (distributed shared memory, st.shared::cluster). After
 //     one synchronisation every warp of every block reduces all
 //     kCluster*kWarps slots itself with the same two redux.sync, so all
-//     threads know the pick without a broadcast. The picked point's
-//     coordinates come from a copy of the whole scan that every block keeps
-//     in its own shared memory (12*N bytes, opted in). Block 0 writes out.
+//     threads know the pick without a broadcast. Block 0 writes out.
+//   * The picked point's coordinates. Up to 18432 points (the eval path's
+//     18000) every block keeps a copy of the whole scan in its own shared
+//     memory (12*N bytes, opted in), so they are one local load. Above that
+//     the copy no longer fits (288 KB at the dataset's 24000-point cap,
+//     over the 227 KB of shared memory a block of an H100, sm_90, can opt
+//     into): a second instantiation keeps in each block only its own
+//     points, as float4 (48 KB at 24576), and reads the winner's from the
+//     owning block through distributed shared memory (one
+//     ld.shared::cluster.v4 a pick). The pick chain, slot word and exchange
+//     are the same in both.
 //
 // The exchange protocol has no barrier inside the loop. Slots are
 // double-buffered by pick parity: pick k writes buffer k&1. A word carries
@@ -61,9 +69,11 @@ namespace {
 constexpr int kCluster = 8;    // blocks per scan (the portable maximum)
 constexpr int kThreads = 128;  // threads per block
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxPoints = 18432;             // 18000 raw points on the main path
 constexpr int kStride = kCluster * kThreads;  // points the cluster takes per round
-constexpr int kPointsPerThread = (kMaxPoints + kStride - 1) / kStride;
+// whole-scan copy in every block: 18 points a thread, 18000 on the eval path
+constexpr int kMaxPointsShared = 18 * kStride;
+// own points only: 24 a thread, the train path's 24000-point scans
+constexpr int kMaxPoints = 24 * kStride;
 constexpr int kSlots = kCluster * kWarps;
 constexpr int kSlotsPerLane = (kSlots + 31) / 32;
 constexpr float kBig = 1e10f;
@@ -73,6 +83,7 @@ constexpr uint32_t kNoIndex = 0xffffu;        // index field of a slot that hold
 static_assert(kCluster >= 1 && kCluster <= 8, "portable cluster size");
 static_assert(kThreads % 32 == 0 && kThreads <= 1024, "block size");
 static_assert(kMaxPoints < (int)kNoIndex, "index field is 16 bits");
+static_assert(kMaxPointsShared < kMaxPoints, "two instantiations");
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -99,6 +110,15 @@ __device__ __forceinline__ void store_cluster(uint32_t addr, unsigned long long 
 __device__ __forceinline__ unsigned long long load_slot(uint32_t addr) {
   unsigned long long v;
   asm volatile("ld.volatile.shared.u64 %0, [%1];" : "=l"(v) : "r"(addr) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ float4 load_cluster_f4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr)
+               : "memory");
   return v;
 }
 
@@ -162,12 +182,18 @@ __device__ __forceinline__ int exchange(uint32_t key, uint32_t idx, int k,
 // same stores, tagged poll, reductions and coordinate load, with a hash
 // of the last pick in place of the distance pass. It times the floor that
 // the chain of K-1 exchanges sets under any amount of distance work.
-template <bool kWork>
+//
+// kPointsPerThread: points a thread owns (the scan's cap over kStride).
+// kWholeScan: every block holds the whole scan's coordinates (xs | ys | zs,
+// 12*n bytes); otherwise each block holds its own points as float4 at local
+// row j*kThreads + tid (16*kPointsPerThread*kThreads bytes) and the pick's
+// coordinates are read from the owning block.
+template <bool kWork, int kPointsPerThread, bool kWholeScan>
 __global__ void __launch_bounds__(kThreads, 1)
 fps_kernel(const float* __restrict__ gx, const float* __restrict__ gy,
            const float* __restrict__ gz, const unsigned char* __restrict__ valid,
            int* __restrict__ out, int n, int k_samples) {
-  extern __shared__ float coords[];  // xs | ys | zs of the whole scan
+  extern __shared__ __align__(16) float coords[];
   __shared__ __align__(8) unsigned long long slots[2 * kSlots];
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -177,10 +203,12 @@ fps_kernel(const float* __restrict__ gx, const float* __restrict__ gy,
   float* xs = coords;
   float* ys = coords + n;
   float* zs = coords + 2 * n;
-  for (int i = tid; i < n; i += kThreads) {
-    xs[i] = gx[row + i];
-    ys[i] = gy[row + i];
-    zs[i] = gz[row + i];
+  if (kWholeScan) {
+    for (int i = tid; i < n; i += kThreads) {
+      xs[i] = gx[row + i];
+      ys[i] = gy[row + i];
+      zs[i] = gz[row + i];
+    }
   }
   for (int i = tid; i < 2 * kSlots; i += kThreads) slots[i] = ~0ull;
 
@@ -199,6 +227,9 @@ fps_kernel(const float* __restrict__ gx, const float* __restrict__ gy,
     pz[j] = in ? gz[row + i] : 0.f;
     dist[j] = in ? (ok ? kBig : -kBig) : -INFINITY;
     if (ok && first < 0) first = i;
+    if (!kWholeScan)
+      reinterpret_cast<float4*>(coords)[j * kThreads + tid] =
+          make_float4(px[j], py[j], pz[j], 0.f);
   }
 
   const uint32_t local_slots = smem_addr(slots);
@@ -214,8 +245,23 @@ fps_kernel(const float* __restrict__ gx, const float* __restrict__ gy,
   const bool writer = rank == 0 && tid == 0;
   if (writer) out_row[0] = last;
 
+  const uint32_t own_coords = smem_addr(coords);
   for (int k = 1; k < k_samples; ++k) {
-    const float cx = xs[last], cy = ys[last], cz = zs[last];
+    float cx, cy, cz;
+    if (kWholeScan) {
+      cx = xs[last];
+      cy = ys[last];
+      cz = zs[last];
+    } else {
+      // point `last` is row (last / kStride) * kThreads + last % kThreads of
+      // block (last % kStride) / kThreads
+      const uint32_t owner = static_cast<uint32_t>((last % kStride) / kThreads);
+      const uint32_t local = static_cast<uint32_t>((last / kStride) * kThreads + last % kThreads);
+      const float4 c = load_cluster_f4(map_to_rank(own_coords + local * 16u, owner));
+      cx = c.x;
+      cy = c.y;
+      cz = c.z;
+    }
     uint32_t key, idx;
     if (kWork) {
       float best = -INFINITY;
@@ -247,8 +293,12 @@ int launch(const float* x, const float* y, const float* z, const unsigned char* 
            int* out, int b, int n, int k, void* stream) {
   if (b == 0 || k == 0) return 0;
   if (n < 1 || n > kMaxPoints) return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = fps_kernel<kWork>;
-  const int smem_bytes = 3 * n * static_cast<int>(sizeof(float));
+  constexpr int kOwnPoints = kMaxPoints / kStride;
+  const bool whole = n <= kMaxPointsShared;
+  auto kernel = whole ? fps_kernel<kWork, kMaxPointsShared / kStride, true>
+                      : fps_kernel<kWork, kOwnPoints, false>;
+  const int smem_bytes = whole ? 3 * n * static_cast<int>(sizeof(float))
+                               : kOwnPoints * kThreads * static_cast<int>(sizeof(float4));
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -276,7 +326,7 @@ extern "C" const char* fv2p_error_string(int code) {
 }
 
 // x, y, z (b,n) f32; valid (b,n) uint8; out (b,k) int32. Requires
-// n <= 18432 and a card with thread-block clusters (compute capability 9.0).
+// n <= 24576 and a card with thread-block clusters (compute capability 9.0).
 extern "C" int fv2p_fps(const float* x, const float* y, const float* z,
                         const unsigned char* valid, int* out, int b, int n, int k,
                         void* stream) {

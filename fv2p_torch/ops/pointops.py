@@ -3,6 +3,7 @@
   * farthest_point_sample_batch  (kernel B2 + wraparound padding)
   * three_nn / three_nn_interpolate  (kernel B3 + inverse-distance weights)
   * ball_query_group  (gather variant)
+  * points_in_boxes_index
   * roipoint_pool3d
   * bilinear_interpolate_bev
 
@@ -75,6 +76,17 @@ def ball_query_group(new_xyz, xyz, xyz_valid, feats, radius, nsample, d2):
     zero = ~any_neighbor[:, :, None, None]
     return (grouped_xyz.masked_fill(zero, 0.0),
             grouped_feats.masked_fill(zero, 0.0), any_neighbor)
+
+
+def points_in_boxes_index(points, boxes, boxes_valid):
+    """The first box (in box order) that contains each point, -1 if none.
+    points (N, 3), boxes (M, 7) center-based, boxes_valid (M,)."""
+    from ..utils import iou3d
+    inside = iou3d.points_in_rotated_boxes(points, boxes) & boxes_valid[:, None]
+    m = boxes.shape[0]
+    box_ids = torch.arange(m, device=points.device)[:, None]
+    first = torch.where(inside, box_ids, m).amin(dim=0)
+    return torch.where(first < m, first, -1)
 
 
 def roipoint_pool3d(points, point_feats, rois, num_sampled, pool_extra_width):

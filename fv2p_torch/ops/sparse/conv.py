@@ -1,4 +1,4 @@
-"""Sparse convolution forward + modules (counterpart of
+"""Sparse convolution forward and backward + modules (counterpart of
 ``fv2p_tpu/ops/sparse/conv.py``).
 
 With an output-side gather table the whole conv is
@@ -9,27 +9,78 @@ one gather and one matmul per layer; the zero pad row at index N_in_cap
 makes missing neighbours implicit. Tables are (N_out, K) int64 here (the
 transpose of the reference's (K, N_out)), so the gathered rows reshape to
 (N_out, K*Cin) without a copy.
+
+The backward is JAX's scatter-free one (``_sparse_conv_core``'s custom VJP):
+with the inverse table inv (N_in, K), which for input row i and tap k names
+the output row that i feeds (the zero row N_out where none),
+
+    dW[k]   = gathered[:, k]^T @ dout
+    dfeat[i] = sum_k  dout_padded[inv[i, k]] @ W[k]^T
+
+two gathers and two matmuls, no scatter-add. A submanifold layer's inverse
+table is its forward table with the taps mirrored; a strided layer's comes
+from the host rulebook (``down_inv_*``).
 """
 import math
 
 import torch
 from torch import nn
 
-from ...models.layers import BN_EPS
+from ...models.layers import BN_EPS, update_running_
 
 
-def sparse_conv_apply(features, nbr, weight, compute_dtype=None):
+def _pad_row(x):
+    return torch.cat([x, x.new_zeros((1, x.shape[1]))], dim=0)
+
+
+def _conv_fwd(features, weight, nbr):
+    k, cin, cout = weight.shape
+    gathered = _pad_row(features)[nbr].reshape(nbr.shape[0], k * cin)
+    return (gathered @ weight.reshape(k * cin, cout)).to(torch.float32)
+
+
+class _SparseConvFn(torch.autograd.Function):
+    """(features (N_in, Cin), weight (K, Cin, Cout), nbr (N_out, K),
+    inv (N_in, K) or None) -> (N_out, Cout) float32, with the gather-matmul
+    backward; inv None is a submanifold layer's, nbr with its taps mirrored,
+    made only when the backward runs. As in JAX, the incoming gradient is
+    cast to the features' type and both gradients come back in their
+    operand's type."""
+
+    @staticmethod
+    def forward(ctx, features, weight, nbr, inv):
+        ctx.save_for_backward(features, weight, nbr, inv)
+        return _conv_fwd(features, weight, nbr)
+
+    @staticmethod
+    def backward(ctx, dout):
+        features, weight, nbr, inv = ctx.saved_tensors
+        if inv is None:
+            inv = nbr.flip(1)
+        k, cin, cout = weight.shape
+        dout = dout.to(features.dtype)
+        dfeat = dw = None
+        if ctx.needs_input_grad[1]:
+            gathered = _pad_row(features)[nbr].reshape(nbr.shape[0], k * cin)
+            dw = (gathered.t() @ dout).reshape(k, cin, cout).to(weight.dtype)
+        if ctx.needs_input_grad[0]:
+            gd = _pad_row(dout)[inv].reshape(inv.shape[0], k * cout)
+            wt = weight.transpose(1, 2).reshape(k * cout, cin)
+            dfeat = (gd @ wt).to(features.dtype)
+        return dfeat, dw, None, None
+
+
+def sparse_conv_apply(features, nbr, weight, compute_dtype=None, inv=None):
     """features (N_in_cap, Cin); nbr (N_out, K) int64 in [0, N_in_cap];
-    weight (K, Cin, Cout) -> (N_out, Cout) float32."""
+    weight (K, Cin, Cout) -> (N_out, Cout) float32. ``inv`` (N_in_cap, K) is
+    the inverse table of a strided layer; None means a submanifold layer
+    (N_out == N_in_cap, the taps mirrored)."""
     if compute_dtype is not None:
         features = features.to(compute_dtype)
         weight = weight.to(compute_dtype)
     else:
         weight = weight.to(features.dtype)
-    k, cin, cout = weight.shape
-    pad = torch.cat([features, features.new_zeros((1, cin))], dim=0)
-    gathered = pad[nbr].reshape(nbr.shape[0], k * cin)
-    return (gathered @ weight.reshape(k * cin, cout)).to(torch.float32)
+    return _SparseConvFn.apply(features, weight, nbr, inv)
 
 
 class _SparseConvBase(nn.Module):
@@ -43,9 +94,9 @@ class _SparseConvBase(nn.Module):
         self.bias = nn.Parameter(torch.zeros(cout)) if use_bias else None
         self.compute_dtype = compute_dtype
 
-    def _apply_conv(self, features, nbr, out_st):
+    def _apply_conv(self, features, nbr, out_st, inv=None):
         feats = sparse_conv_apply(features, nbr, self.kernel,
-                                  self.compute_dtype)
+                                  self.compute_dtype, inv)
         if self.bias is not None:
             feats = feats + self.bias
         feats = feats.masked_fill(~out_st.valid_mask()[:, None], 0.0)
@@ -53,21 +104,26 @@ class _SparseConvBase(nn.Module):
 
 
 class SubMConv3d(_SparseConvBase):
-    """Submanifold sparse conv (output rows == input rows)."""
+    """Submanifold sparse conv (output rows == input rows); its inverse
+    table is the forward table with the taps mirrored (the kernel's offsets
+    are symmetric)."""
 
     def forward(self, st, nbr):
         return self._apply_conv(st.features, nbr, st)
 
 
 class SparseConv3d(_SparseConvBase):
-    """Strided sparse conv onto a precomputed output voxel set."""
+    """Strided sparse conv onto a precomputed output voxel set; ``inv`` is
+    the host rulebook's inverse table."""
 
-    def forward(self, in_st, out_st, nbr):
-        return self._apply_conv(in_st.features, nbr, out_st)
+    def forward(self, in_st, out_st, nbr, inv):
+        return self._apply_conv(in_st.features, nbr, out_st, inv)
 
 
 class MaskedBatchNorm(nn.Module):
-    """Eval BatchNorm1d over voxel rows; invalid rows stay zero."""
+    """BatchNorm1d over voxel rows; invalid rows stay zero. In training the
+    statistics are those of the valid rows, mean then variance in two
+    passes, and update the running ones as flax's BatchNorm does."""
 
     def __init__(self, channels):
         super().__init__()
@@ -77,8 +133,16 @@ class MaskedBatchNorm(nn.Module):
         self.register_buffer('running_var', torch.ones(channels))
 
     def forward(self, x, mask):
-        y = ((x - self.running_mean) * torch.rsqrt(self.running_var + BN_EPS)
-             * self.weight + self.bias)
+        if self.training:
+            m = mask.to(torch.float32)[:, None]
+            n = torch.clamp(m.sum(), min=1.0)
+            xf = x.to(torch.float32)
+            mean = (xf * m).sum(dim=0) / n
+            var = ((xf - mean) ** 2 * m).sum(dim=0) / n
+            update_running_(self.running_mean, self.running_var, mean, var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        y = (x - mean) * torch.rsqrt(var + BN_EPS) * self.weight + self.bias
         return y.masked_fill(~mask[:, None], 0.0)
 
 

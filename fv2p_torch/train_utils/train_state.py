@@ -1,0 +1,65 @@
+"""One training step (counterpart of ``make_train_step`` in
+``fv2p_tpu/train_utils/train_state.py``): forward in train mode, loss,
+backward, gradient clipping, optimizer step. The BatchNorm running
+statistics update in the forward, as flax's mutable ``batch_stats`` do.
+
+The random draws of a step come from two generators seeded by the step
+number, as JAX folds ``PRNGKey(13)`` with the step: one for the RoI
+sampling, one for the dropout masks. The port's generators do not give
+JAX's bits; a test that needs JAX's draws feeds them in."""
+import torch
+
+from ..models.detectors.detector3d_template import compute_training_loss
+from .optimization import build_optimizer
+
+
+def step_generators(step, device):
+    """{'sampling', 'dropout'}: generators on ``device`` seeded from the
+    step number."""
+    gens = {}
+    for stream, name in enumerate(('sampling', 'dropout')):
+        g = torch.Generator(device=device)
+        g.manual_seed((13 << 32) + (int(step) << 1) + stream)
+        gens[name] = g
+    return gens
+
+
+class TrainStep:
+    """A model in train mode with its optimizer. ``step(batch)`` runs one
+    training step and returns the loss terms and ``grad_norm`` (the global
+    norm before clipping), all 0-d tensors on the model's device; the three
+    phases are also callable one by one (``forward_loss``, ``backward``,
+    ``update``), so that a caller can time them."""
+
+    def __init__(self, model, optim_cfg, total_steps):
+        self.model = model.train()
+        self.optimizer = build_optimizer(model.parameters(), optim_cfg, total_steps)
+        self.device = next(model.parameters()).device
+
+    @property
+    def step_count(self):
+        return self.optimizer.count
+
+    def forward_loss(self, batch_dict):
+        bd = dict(batch_dict)
+        bd['generators'] = step_generators(self.step_count, self.device)
+        out = self.model(bd)
+        loss, terms = compute_training_loss(self.model, out)
+        return loss, terms, out
+
+    def backward(self, loss):
+        self.optimizer.zero_grad()
+        loss.backward()
+
+    def update(self):
+        grad_norm = self.optimizer.clip_grads()
+        self.optimizer.step()
+        return grad_norm
+
+    def step(self, batch_dict):
+        loss, terms, _ = self.forward_loss(batch_dict)
+        self.backward(loss)
+        grad_norm = self.update()
+        metrics = {k: v.detach() for k, v in terms.items()}
+        metrics['grad_norm'] = grad_norm
+        return metrics

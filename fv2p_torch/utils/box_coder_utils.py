@@ -1,5 +1,4 @@
-"""Box coders (reference ``pcdet/utils/box_coder_utils.py``). Decode only:
-the port runs inference."""
+"""Box coders (reference ``pcdet/utils/box_coder_utils.py``)."""
 import torch
 
 
@@ -9,6 +8,25 @@ class ResidualCoder:
 
     def __init__(self, code_size=7, **kwargs):
         self.code_size = code_size
+
+    def encode(self, boxes, anchors):
+        """boxes, anchors (N, 7 + C) -> (N, 7 + C); extents clamped to
+        1e-5 on both sides first."""
+        anchors = torch.cat([anchors[:, :3], anchors[:, 3:6].clamp(min=1e-5),
+                             anchors[:, 6:]], dim=-1)
+        boxes = torch.cat([boxes[:, :3], boxes[:, 3:6].clamp(min=1e-5),
+                           boxes[:, 6:]], dim=-1)
+        xa, ya, za, dxa, dya, dza, ra = [anchors[:, i] for i in range(7)]
+        xg, yg, zg, dxg, dyg, dzg, rg = [boxes[:, i] for i in range(7)]
+        diagonal = torch.sqrt(dxa ** 2 + dya ** 2)
+        xt = (xg - xa) / diagonal
+        yt = (yg - ya) / diagonal
+        zt = (zg - za) / dza
+        dxt = torch.log(dxg / dxa)
+        dyt = torch.log(dyg / dya)
+        dzt = torch.log(dzg / dza)
+        cts = [boxes[:, i] - anchors[:, i] for i in range(7, boxes.shape[-1])]
+        return torch.stack([xt, yt, zt, dxt, dyt, dzt, rg - ra, *cts], dim=-1)
 
     def decode(self, box_encodings, anchors):
         """box_encodings (..., 7), anchors (..., 7 + C) -> (..., 7 + C)."""

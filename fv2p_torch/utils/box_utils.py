@@ -5,7 +5,7 @@ import math
 
 import torch
 
-from .common_utils import device_constant
+from .common_utils import device_constant, rotate_points_along_z
 
 # Corner template of the reference boxes_to_corners_3d:
 #     7 -------- 4
@@ -24,6 +24,13 @@ _CORNER_TEMPLATE = [
 def _template(boxes, rows, cols):
     t = device_constant(_CORNER_TEMPLATE, boxes.dtype, boxes.device)
     return t[:rows, :cols] / 2
+
+
+def boxes_to_corners_3d(boxes3d):
+    """(N, 7) -> (N, 8, 3) corners in the template's order."""
+    corners = boxes3d[:, None, 3:6] * _template(boxes3d, 8, 3)[None]
+    corners = rotate_points_along_z(corners, boxes3d[:, 6])
+    return corners + boxes3d[:, None, 0:3]
 
 
 def boxes_to_corners_bev(boxes3d):

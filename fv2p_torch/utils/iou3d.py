@@ -12,7 +12,7 @@ reads are the only waits on the device in an NMS call.
 import torch
 
 from ..ops.cuda.rotated_iou import bev_corners_ccw as _bev_corners_ccw
-from ..ops.cuda.rotated_iou import iou_bev, iou_bev_upper
+from ..ops.cuda.rotated_iou import iou_bev, iou_bev_upper, overlap_matrix
 
 _FIXED_POINT_ROUND = 8
 
@@ -20,6 +20,28 @@ _FIXED_POINT_ROUND = 8
 def boxes_iou_bev(boxes_a, boxes_b):
     """Rotated BEV IoU (N, M)."""
     return iou_bev(boxes_a, boxes_b)
+
+
+def boxes_overlap_bev(boxes_a, boxes_b):
+    """Rotated BEV intersection areas (N, M) of (N, 7) and (M, 7) boxes,
+    through kernel B1's overlap entry point."""
+    return overlap_matrix(_bev_corners_ccw(boxes_a), _bev_corners_ccw(boxes_b))
+
+
+def boxes_iou3d(boxes_a, boxes_b):
+    """3D IoU (N, M): the BEV overlap times the overlap of the z extents
+    [z - dz/2, z + dz/2], over the union of the volumes (clamped to 1e-6)."""
+    overlap_bev = boxes_overlap_bev(boxes_a, boxes_b)
+    a_zmin = (boxes_a[:, 2] - boxes_a[:, 5] / 2)[:, None]
+    a_zmax = (boxes_a[:, 2] + boxes_a[:, 5] / 2)[:, None]
+    b_zmin = (boxes_b[:, 2] - boxes_b[:, 5] / 2)[None, :]
+    b_zmax = (boxes_b[:, 2] + boxes_b[:, 5] / 2)[None, :]
+    overlap_h = torch.clamp(torch.minimum(a_zmax, b_zmax)
+                            - torch.maximum(a_zmin, b_zmin), min=0.0)
+    overlap_3d = overlap_bev * overlap_h
+    vol_a = (boxes_a[:, 3] * boxes_a[:, 4] * boxes_a[:, 5])[:, None]
+    vol_b = (boxes_b[:, 3] * boxes_b[:, 4] * boxes_b[:, 5])[None, :]
+    return overlap_3d / torch.clamp(vol_a + vol_b - overlap_3d, min=1e-6)
 
 
 def _greedy_by_fixed_point(overlap, valid):

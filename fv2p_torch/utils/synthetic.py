@@ -4,6 +4,11 @@ Voxel occupancy comes from ray-cast surface scans (``lidar_sim``), so the
 rulebook density, per-level dilation and gather locality behave like real
 scans. The random stream matches the JAX package's bench batch builder
 draw for draw: the same seed gives the same numpy arrays.
+
+A train batch adds ``gt_boxes`` (B, max_objs, 8) and may keep the raw points
+as the dataset does (``pad_points``): each scan's points in ray order up to
+the cap, then zero rows with ``points_valid`` False. Neither draws from the
+random stream.
 """
 import numpy as np
 import torch
@@ -14,7 +19,8 @@ from .lidar_sim import simulate_scan, voxelize_coords
 
 def scan_coords(rng, meta, n_fill):
     """Ray-cast scan voxelized to exactly n_fill unique (z, y, x) rows.
-    Returns (coords, points): the voxel rows plus the raw scan points."""
+    Returns (coords, points, boxes): the voxel rows, the raw scan points and
+    the six cars (K, 7) placed in the scene."""
     nx, ny, nz = meta['grid_size']
     boxes = np.stack([
         np.array([rng.uniform(8, 60), rng.uniform(-25, 25), -1.0,
@@ -29,23 +35,36 @@ def scan_coords(rng, meta, n_fill):
         extra = voxelize_coords(pts, vs, pc_range)
         zyx = np.unique(np.concatenate([zyx, extra]), axis=0)
     sel = np.sort(rng.choice(len(zyx), n_fill, replace=False))
-    return zyx[sel].astype(np.int64), pts
+    return zyx[sel].astype(np.int64), pts, boxes
 
 
-def synthetic_batch_np(meta, batch_size, n_cap, n_fill, n_points, seed=0):
+# the two fixed gt rows of the JAX package's bench batch (class 1, Car)
+BENCH_GT_ROWS = ((10.0, 0.0, -1.0, 3.9, 1.6, 1.5, 0.3, 1),
+                 (20.0, -5.0, -1.0, 3.7, 1.6, 1.4, -0.7, 1))
+
+
+def synthetic_batch_np(meta, batch_size, n_cap, n_fill, n_points, seed=0,
+                       gt=None, max_objs=50, pad_points=False):
     """Numpy batch: voxels from surface scans, VoxelResBackBone8x host
     rulebooks attached, and ``n_points`` raw points per sample from the same
-    scans (wraparound-padded when a scan has fewer)."""
+    scans: sampled (wraparound-padded when a scan has fewer), or with
+    ``pad_points`` the scan's points first and invalid zero rows after.
+    ``gt``: None (no boxes), 'bench' (the JAX bench batch's two rows) or
+    'scan' (the six cars of each scan, class 1), padded with zero rows to
+    ``max_objs``."""
+    if gt not in (None, 'bench', 'scan'):
+        raise ValueError(f'gt must be None, "bench" or "scan", not {gt!r}')
     rng = np.random.RandomState(seed)
     p = meta['max_points_per_voxel']
     coords = np.zeros((batch_size, n_cap, 3), np.int32)
     voxels = np.zeros((batch_size, n_cap, p, 4), np.float32)
     nums = np.zeros((batch_size, n_cap), np.int32)
     valid = np.zeros((batch_size, n_cap), bool)
-    scan_pts = []
+    scan_pts, scan_boxes = [], []
     for b in range(batch_size):
-        coords[b, :n_fill], pts_b = scan_coords(rng, meta, n_fill)
+        coords[b, :n_fill], pts_b, boxes_b = scan_coords(rng, meta, n_fill)
         scan_pts.append(pts_b)
+        scan_boxes.append(boxes_b)
         voxels[b, :n_fill] = rng.rand(n_fill, p, 4).astype(np.float32)
         nums[b, :n_fill] = rng.randint(1, p + 1, n_fill)
         valid[b, :n_fill] = True
@@ -55,15 +74,29 @@ def synthetic_batch_np(meta, batch_size, n_cap, n_fill, n_points, seed=0):
                                           meta['grid_size'])
     nf = int(meta.get('num_point_features', 4))
     pts = np.zeros((batch_size, n_points, nf), np.float32)
+    pts_valid = np.ones((batch_size, n_points), bool)
     for b in range(batch_size):
         src = scan_pts[b][:, :nf]
+        if pad_points:                             # the dataset's padding
+            n = min(len(src), n_points)
+            pts[b, :n, :src.shape[1]] = src[:n]
+            pts_valid[b, n:] = False
+            continue
         if len(src) >= n_points:
             idx = np.sort(rng.choice(len(src), n_points, replace=False))
         else:                                      # wraparound pad
             idx = np.arange(n_points) % len(src)
         pts[b, :, :src.shape[1]] = src[idx]
     batch['points'] = pts
-    batch['points_valid'] = np.ones((batch_size, n_points), bool)
+    batch['points_valid'] = pts_valid
+    if gt is not None:
+        boxes = np.zeros((batch_size, max_objs, 8), np.float32)
+        for b in range(batch_size):
+            rows = (np.asarray(BENCH_GT_ROWS, np.float32) if gt == 'bench' else
+                    np.concatenate([scan_boxes[b], np.ones((len(scan_boxes[b]), 1),
+                                                           np.float32)], 1))
+            boxes[b, :len(rows)] = rows[:max_objs]
+        batch['gt_boxes'] = boxes
     return batch
 
 

@@ -15,6 +15,10 @@ one torch submodule (``a/b/c`` -> ``a.b.c``):
   bias, running_mean, running_var.
 
 Any flax leaf without a torch home, or torch tensor left unfilled, raises.
+``flax_variables(model)`` is the converse: the port's parameters and
+running statistics, or with ``grads=True`` the parameters' gradients, as a
+flax tree of numpy arrays (a 1x1 flax ``Conv`` mapped onto a ``Dense``
+gets its (1, 1, I, O) kernel back).
 
 ``init_random_(model, seed)`` draws weights from a ``torch.Generator``: the
 same initialisers as the flax modules (LeCun normal kernels, zero biases,
@@ -88,6 +92,55 @@ def load_flax_variables(model, variables_np):
         raise ValueError(f'flax -> torch weight map: unmatched flax leaves '
                          f'{unmatched}; unfilled torch tensors {unfilled}')
     return model
+
+
+def _flax_leaves(module, tensors):
+    """(collection, leaf, numpy array) of one module's tensors, named and
+    laid out as flax keeps them; ``tensors(name)`` gives each tensor."""
+    def arr(name):
+        t = tensors(name)
+        return t.detach().cpu().numpy().copy()
+
+    if isinstance(module, (BatchNorm, MaskedBatchNorm)):
+        return [('params', 'scale', arr('weight')), ('params', 'bias', arr('bias')),
+                ('batch_stats', 'mean', arr('running_mean')),
+                ('batch_stats', 'var', arr('running_var'))]
+    if isinstance(module, (_SparseConvBase, MdeformConvBlock)):
+        kernel = arr('kernel')
+    elif isinstance(module, Dense):
+        kernel = arr('weight').T
+        kernel = kernel.reshape(module.flax_kernel_prefix + kernel.shape)
+    elif isinstance(module, ConvTranspose2d):
+        kernel = arr('weight').transpose(2, 3, 0, 1)[::-1, ::-1]
+    elif isinstance(module, torch.nn.Conv2d):
+        kernel = arr('weight').transpose(2, 3, 1, 0)
+    else:
+        return []
+    out = [('params', 'kernel', np.ascontiguousarray(kernel))]
+    if getattr(module, 'bias', None) is not None:
+        out.append(('params', 'bias', arr('bias')))
+    return out
+
+
+def flax_variables(model, grads=False):
+    """The model as a flax variable tree {'params', 'batch_stats'} of numpy
+    arrays; with ``grads=True`` the tree {'params'} of the parameters'
+    gradients (zeros where a parameter has none)."""
+    out = {}
+    for mod_path, module in model.named_modules():
+        def tensor(name, module=module):
+            t = getattr(module, name)
+            if grads and isinstance(t, torch.nn.Parameter):
+                return t.grad if t.grad is not None else torch.zeros_like(t)
+            return t
+        for collection, leaf, value in _flax_leaves(module, tensor):
+            if grads and collection != 'params':
+                continue
+            node = out.setdefault(collection, {})
+            for part in mod_path.split('.'):
+                node = node.setdefault(part, {})
+            node[leaf] = value
+    return out
 
 
 @torch.no_grad()

@@ -329,6 +329,44 @@ def test_b2_fps_corner_cases_match_pallas(case):
         assert len(set(got[0])) == 7
 
 
+def test_b2_limit_covers_kitti_train_scans():
+    """The kernel takes the raw-point cap FV2P's KITTI config trains on
+    (the dataset pads every scan to MAX_POINTS_PER_SCAN)."""
+    from pathlib import Path
+    from fv2p_torch.config import EasyDict, cfg_from_yaml_file
+    from fv2p_torch.ops.cuda import fps as fps_module
+    cfg = EasyDict()
+    cfg_from_yaml_file(str(Path(__file__).resolve().parent.parent / 'tools/cfgs/'
+                           'kitti_models/FV2P/fv2p.yaml'), cfg)
+    cap = int(cfg.DATA_CONFIG.MAX_POINTS_PER_SCAN)
+    assert cap == 24000
+    assert fps_module.MAX_POINTS >= cap
+    # the C source refuses above the same limit the wrapper checks
+    src = (Path(fps_module.__file__).resolve().parent.parent / 'csrc' / 'fps.cu').read_text()
+    assert f'kMaxPoints = {fps_module.MAX_POINTS // 1024} * kStride' in src
+    assert 'kStride = kCluster * kThreads' in src and 'kCluster = 8;' in src
+    assert 'kThreads = 128;' in src
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('n,n_valid', [(24000, 22500), (24576, 24576), (18000, 17000)])
+def test_b2_kernel_on_card_at_train_scan_sizes(n, n_valid):
+    """Runs on a machine with a CUDA card (``python -m pytest -m cuda
+    tests/test_torch_kernels.py``): the whole-scan instantiation (18000) and
+    the own-points one (24000 with an invalid tail, 24576) pick exactly as
+    the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA card: the kernels are built with nvcc')
+    g = torch.Generator().manual_seed(n)
+    pts = torch.randn(2, n, 3, generator=g) * 20
+    valid = torch.zeros(2, n, dtype=torch.bool)
+    valid[:, :n_valid] = True
+    valid[1, 5::7] = False
+    got = fps_cuda(pts.cuda(), valid.cuda(), 512)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), fps_plain(pts, valid, 512))
+
+
 def test_cpu_dispatch_takes_plain_version():
     """A CPU tensor runs the plain version and launches nothing."""
     reset_launch_counts()
@@ -608,10 +646,10 @@ def test_b4_sa_module_fused_path_matches_jax(monkeypatch):
     ref = jmod.apply(variables, *args, train=False)
 
     tmod = _SAModuleMSG(RADII, NSAMPLES, ((64, 64), (64, 64)), feats.shape[-1],
-                        compute_dtype=torch.bfloat16)
+                        compute_dtype=torch.bfloat16).eval()
     load_flax_variables(tmod, jax.tree_util.tree_map(np.asarray,
                                                      dict(variables)))
-    assert tmod.fused_ok()
+    assert tmod.fused_ok()              # eval mode: training groups without B4
     got = tmod(t(xyz), t(valid), t(feats), t(centers))
     assert got.shape == ref.shape == (3, 27, 128)
     assert_bf16_close(got, ref)
