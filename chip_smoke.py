@@ -4,9 +4,10 @@
     python3 chip_smoke.py          # from the repository root, one CUDA card
 
 It builds the four hand-written CUDA kernels (nvcc, sm_90a) and drives two
-models at full width in bf16 with seeded random weights on the bench batch:
-batch 4, 16000-voxel cap with 14000 filled from ray-cast surface scans, host
-rulebooks, 18000 raw points per scan (MGAF reads no points).
+models at full width in bf16 with seeded random weights, each in inference
+on the bench batch (batch 4, 16000-voxel cap with 14000 filled from
+ray-cast surface scans, host rulebooks, 18000 raw points per scan; MGAF
+reads no points) and in training (below).
 
   * FV2P (tools/cfgs/kitti_models/FV2P/fv2p.yaml), KITTI Car: all four
     kernels on its path;
@@ -48,9 +49,11 @@ by source line.
 
 Training comes after the timed forwards and before the profiler: FV2P in
 train mode at full width (batch 2, the 16000-voxel train cap with 14000
-filled, each scan padded to the config's 24000-point cap, the six simulated
-cars of each scan as gt, bf16 compute and f32 parameters, adam_onecycle over
-1000 steps). First one f32 step (no TF32) through the kernels and through
+filled, the rulebooks at the yaml's train level capacities
+(MODEL.BACKBONE_3D.LEVEL_CAPACITIES, as tools/train.py passes them), each
+scan padded to the config's 24000-point cap, the six simulated cars of each
+scan as gt, bf16 compute and f32 parameters, adam_onecycle over 1000
+steps). First one f32 step (no TF32) through the kernels and through
 the plain versions from the same weights and generators: FPS picks and
 proposal-NMS keeps identical, loss terms within 1e-5 relative, every
 gradient within 1e-4 max|g| + 1e-7 (the biases a train-mode BatchNorm
@@ -63,6 +66,20 @@ more step whose kernel calls are held against the plain versions and timed
 mode and the profiler, the host waits and the card's busy share of a step.
 The train record goes to chiprun_out/chip_smoke.json under `train`, and the
 `kernels` line gives each kernel's train-path launches beside the eval ones.
+
+Then MGAF-3DSSD in train mode at full width, the same way: batch 4
+(mgaf-3dssd.yaml's BATCH_SIZE_PER_GPU), its yaml's train level capacities,
+no raw points, the six cars of each scan as gt, adam_onecycle over 1000
+steps. The f32 step through the kernels and through the plain versions
+must give identical iou-score targets (B1's use on this path), loss terms
+within 1e-5 relative and gradients within 1e-4 max|g| + 1e-7; in the 2 + 10
+bf16 steps B1 launches on every step and no other kernel does, every loss
+term is finite, and the first step has object centers and foreground
+cells among its targets; B1's calls of one more step are held against the
+plain version and timed; last, the step's four deformable convolutions are
+replayed, forward and forward + backward, beside their bounds. The record
+is `mgaf_train` in chip_smoke.json, the `mgaf_train_*` keys of the
+`kernels` line.
 
 Exits non-zero on any failure, and without a CUDA card. The second-to-last
 lines are a JSON ``kernels`` object (FV2P's path) and the nvidia-smi name and
@@ -956,16 +973,23 @@ def dcn_times(model, batch):
 
 # ----------------------------------------------------------------- training
 
-def train_inputs(meta):
-    """The train batch: batch 2, the 16000-voxel train cap with 14000 filled,
-    each scan's points padded to the config's 24000-point cap as the dataset
-    pads them, and each scan's six simulated cars as gt."""
+def train_inputs(cfg, meta, batch_size, n_points):
+    """A train batch of `cfg`: `batch_size` scans, the 16000-voxel train cap
+    with 14000 filled, the rulebooks at the yaml's train level capacities
+    (MODEL.BACKBONE_3D.LEVEL_CAPACITIES, as tools/train.py passes them), each
+    scan's points padded to `n_points` as the dataset pads them, and each
+    scan's six simulated cars as gt."""
+    from fv2p_torch.ops.sparse.host_rulebook import select_mode_caps
     from fv2p_torch.utils.synthetic import batch_to_torch, synthetic_batch_np
+    caps = select_mode_caps(cfg.MODEL.BACKBONE_3D.get('LEVEL_CAPACITIES'), training=True)
     t0 = time.perf_counter()
-    batch_np = synthetic_batch_np(meta, TRAIN_BATCH, N_CAP, N_FILL, TRAIN_POINTS,
-                                  seed=SEED, gt='scan', pad_points=True)
+    batch_np = synthetic_batch_np(meta, batch_size, N_CAP, N_FILL, n_points,
+                                  seed=SEED, gt='scan', pad_points=True,
+                                  caps_override=caps)
     host_s = time.perf_counter() - t0
-    return batch_to_torch(batch_np, 'cuda'), host_s
+    level_caps = {k[len('coords_'):]: int(v.shape[1])
+                  for k, v in batch_np['rulebooks'].items() if k.startswith('coords_')}
+    return batch_to_torch(batch_np, 'cuda'), host_s, level_caps
 
 
 def make_train_step(cfg, meta, dtype):
@@ -973,9 +997,10 @@ def make_train_step(cfg, meta, dtype):
     return TrainStep(make_model(cfg, meta, dtype), cfg.OPTIMIZATION, TRAIN_TOTAL_STEPS)
 
 
-def counted_train_step(kcuda, step, batch, events=None, keep_out=False):
+def counted_train_step(kcuda, step, batch, launched, events=None, keep_out=False):
     """One train step with the launch counts set to 0 just before it and
-    read just after; with `events` (four CUDA events) around forward+loss,
+    read just after: each kernel in `launched` must have launched, every
+    other kernel not. With `events` (four CUDA events) around forward+loss,
     backward and the optimizer step. Returns (loss terms on the card,
     launches, the forward's batch dict if keep_out)."""
     kcuda.reset_launch_counts()
@@ -992,36 +1017,47 @@ def counted_train_step(kcuda, step, batch, events=None, keep_out=False):
     if events:
         events[3].record()
     launches = dict(kcuda.launch_counts)
-    for name in ('rotated_iou', 'fps', 'three_nn'):
-        if launches[name] == 0:
+    for name, n in launches.items():
+        if name in launched and n == 0:
             fail(f'train step {step.step_count - 1}: kernel {name} was not launched')
-    if launches['sa_group'] != 0:
-        fail(f'train step {step.step_count - 1}: B4 (sa_group) launched '
-             f'{launches["sa_group"]} times; training groups without it')
+        if name not in launched and n != 0:
+            fail(f'train step {step.step_count - 1}: kernel {name} launched {n} '
+                 f'times; this train path does not run it')
     return terms, launches, (out if keep_out else None)
 
 
 def train_targets(out):
-    """Foreground counts of one train forward: positive anchors, foreground
-    keypoints, foreground (regressed) RoIs, and the sampled RoIs."""
+    """Foreground counts of one FV2P train forward: positive anchors,
+    foreground keypoints, foreground (regressed) RoIs, and the sampled RoIs."""
     return {'positive_anchors': int((out['anchor_head_ret']['box_cls_labels'] > 0).sum()),
             'foreground_keypoints': int((out['point_head_ret']['point_cls_labels'] > 0).sum()),
             'foreground_rois': int(out['roi_head_ret']['reg_valid_mask'].sum()),
             'sampled_rois': int(out['roi_head_ret']['reg_valid_mask'].numel())}
 
 
-def timed_train_steps(kcuda, step, batch):
+def mgaf_train_targets(out):
+    """Counts of one MGAF train forward's targets: the objects that have a
+    center cell (mask_target positives), the segmentation map's foreground
+    cells and the heat map's peaks (cells exactly 1.0)."""
+    hr = out['head_ret']
+    return {'mask_target_positives': int(hr['mask_target'].sum()),
+            'segm_foreground_cells': int((hr['segm_target'] > 0).sum()),
+            'heatmap_peaks': int((hr['hm_target'] == 1.0).sum())}
+
+
+def timed_train_steps(kcuda, step, batch, launched, targets):
     """TRAIN_WARMUP + TRAIN_TIMED bf16 steps, each counted; CUDA events
-    around each phase of the timed ones. Every loss term of every step must
-    be finite."""
+    around each phase of the timed ones; `targets(out)` of the first step's
+    forward. Every loss term of every step must be finite."""
     terms_all, launches_all, rows = [], [], []
     first = None
     torch.cuda.reset_peak_memory_stats()
     for i in range(TRAIN_WARMUP + TRAIN_TIMED):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-        terms, launches, out = counted_train_step(kcuda, step, batch, ev, keep_out=i == 0)
+        terms, launches, out = counted_train_step(kcuda, step, batch, launched, ev,
+                                                  keep_out=i == 0)
         if i == 0:
-            first = train_targets(out)
+            first = targets(out)
             del out
         terms_all.append(terms)
         launches_all.append(launches)
@@ -1049,18 +1085,53 @@ def timed_train_steps(kcuda, step, batch):
             'peak_mem_gib': peak}
 
 
-def captured_train_calls(kernels, step, batch):
+def captured_train_calls(kernels, step, batch, launched):
     """One more counted step with every kernel call recorded (the calls the
     train path makes, for the comparison with the plain versions)."""
     from fv2p_torch.ops import cuda as kcuda
     train_k = [Kernel(k.name, k.module, k.entries, k.source, k.replaces) for k in kernels]
     with patched(train_k, capturing):
-        _, launches, _ = counted_train_step(kcuda, step, batch)
+        _, launches, _ = counted_train_step(kcuda, step, batch, launched)
     sync()
     for k in train_k:
         if launches[k.name] != len(k.calls):
             fail(f'train {k.name}: {launches[k.name]} launches, {len(k.calls)} calls')
     return {k.name: k for k in train_k}, launches
+
+
+def compare_train_steps(label, tk, tp, gk, gp):
+    """Loss terms (tk, tp) and gradients (gk, gp) of one step through the
+    kernels and through the plain versions: terms within 1e-5 relative,
+    every gradient within 1e-4 max|g| + 1e-7, and a bias a train-mode
+    BatchNorm normalises away (true gradient 0) noise under 1e-5 of the same
+    conv's kernel gradient on both sides. Returns the record."""
+    rel = {k: abs(tk[k] - tp[k]) / max(abs(tp[k]), 1e-30) for k in tp}
+    for k, r in rel.items():
+        if r > 1e-5:
+            fail(f'{label}: loss term {k} differs by {r} relative > 1e-5')
+    if sorted(gk) != sorted(gp):
+        fail(f'{label}: kernel and plain routes give gradients to other parameters')
+    worst, zero_biases = 0.0, 0
+    for name, g in gp.items():
+        ref_max = float(g.abs().max())
+        err = float((gk[name] - g).abs().max())
+        if zero_by_construction(name):
+            scale = float(gp[name[:-len('bias')] + 'kernel'].abs().max())
+            if max(ref_max, float(gk[name].abs().max())) > 1e-5 * scale:
+                fail(f'{label}: {name} should be noise, is {ref_max}')
+            zero_biases += 1
+            continue
+        if err > 1e-4 * ref_max + 1e-7:
+            fail(f'{label}: gradient {name} differs by {err} > 1e-4 * {ref_max} + 1e-7')
+        worst = max(worst, err / (ref_max + 1e-30))
+    return {'loss_rel_diff': rel, 'grad_worst_rel_to_max': worst,
+            'grad_tensors': len(gp), 'zero_by_construction_biases': zero_biases,
+            'loss_terms_kernel': tk}
+
+
+def _grads(model):
+    return {n: p.grad.detach().clone() for n, p in model.named_parameters()
+            if p.grad is not None}
 
 
 def train_f32_compare(kernels, cfg, meta, batch):
@@ -1097,10 +1168,8 @@ def train_f32_compare(kernels, cfg, meta, batch):
             sync()
         finally:
             pointops.fps, roi_mod.proposal_layer = fps_fn, prop_fn
-        grads = {n: p.grad.detach().clone() for n, p in step.model.named_parameters()
-                 if p.grad is not None}
         terms = {k: float(v.detach()) for k, v in terms.items()}
-        return terms, grads, picks, props, out['roi_head_ret']['rois'].detach()
+        return terms, _grads(step.model), picks, props, out['roi_head_ret']['rois'].detach()
 
     with full_f32():
         step = make_train_step(cfg, meta, None)
@@ -1113,34 +1182,15 @@ def train_f32_compare(kernels, cfg, meta, batch):
             fail('train f32 step: proposal NMS keeps differ between kernel and plain')
     if not torch.equal(rk, rp):
         fail('train f32 step: sampled RoIs differ between kernel and plain')
-    rel = {k: abs(tk[k] - tp[k]) / max(abs(tp[k]), 1e-30) for k in tp}
-    for k, r in rel.items():
-        if r > 1e-5:
-            fail(f'train f32 step: loss term {k} differs by {r} relative > 1e-5')
-    if sorted(gk) != sorted(gp):
-        fail('train f32 step: kernel and plain routes give gradients to other parameters')
-    worst, zero_biases = 0.0, 0
-    for name, g in gp.items():
-        ref_max = float(g.abs().max())
-        err = float((gk[name] - g).abs().max())
-        if zero_by_construction(name):
-            scale = float(gp[name[:-len('bias')] + 'kernel'].abs().max())
-            if max(ref_max, float(gk[name].abs().max())) > 1e-5 * scale:
-                fail(f'train f32 step: {name} should be noise, is {ref_max}')
-            zero_biases += 1
-            continue
-        if err > 1e-4 * ref_max + 1e-7:
-            fail(f'train f32 step: gradient {name} differs by {err} > 1e-4 * {ref_max} + 1e-7')
-        worst = max(worst, err / (ref_max + 1e-30))
+    rec = compare_train_steps('train f32 step', tk, tp, gk, gp)
     log(f'# train f32 step, kernels vs plain versions: FPS picks and proposal keeps '
-        f'identical; loss terms max relative difference {max(rel.values()):.3g}; '
-        f'{len(gp)} gradient tensors, worst error {worst:.3g} of the tensor\'s max '
-        f'({zero_biases} biases normalised away held to noise)')
+        f'identical; loss terms max relative difference {max(rec["loss_rel_diff"].values()):.3g}; '
+        f'{len(gp)} gradient tensors, worst error {rec["grad_worst_rel_to_max"]:.3g} of the '
+        f'tensor\'s max ({rec["zero_by_construction_biases"]} biases normalised away held '
+        f'to noise)')
     del step
     torch.cuda.empty_cache()
-    return {'loss_rel_diff': rel, 'grad_worst_rel_to_max': worst,
-            'grad_tensors': len(gp), 'zero_by_construction_biases': zero_biases,
-            'loss_terms_kernel': tk}
+    return rec
 
 
 def zero_by_construction(name):
@@ -1149,38 +1199,235 @@ def zero_by_construction(name):
     return name.startswith('backbone_3d.res') and '.conv' in name and name.endswith('.bias')
 
 
-def train_kernel_rows(train_calls, launches, rows):
-    """The train path's calls of each kernel against the plain versions, and
-    their times, added to each kernel's row of the `kernels` line (B4 has
-    none: training does not launch it)."""
+def train_kernel_rows(train_calls, launches, rows, prefix='train'):
+    """A train path's calls of each kernel against the plain versions, and
+    their times, added to each kernel's row of the `kernels` line under
+    `prefix`_* keys (a kernel the path does not launch gets its count, 0)."""
     from fv2p_torch.ops.cuda import fps
     bounds = {'rotated_iou': bound_rotated_iou, 'fps': bound_fps,
               'three_nn': bound_three_nn}
     for row in rows:
         k = train_calls[row['name']]
-        row['train_launches'] = launches[k.name]
+        row[f'{prefix}_launches'] = launches[k.name]
         if not k.calls:
             continue
         err, ref_max = compare(k)
         b_bytes, b_ops = (sum(x) for x in zip(*(bounds[k.name](a) for a in k.calls)))
-        row.update(
-            train_max_abs_err=err, train_ref_max=ref_max,
-            train_ms=time_events(lambda: [k.launch(a) for a in k.calls],
-                                 reps=3 if k.name == 'fps' else 10),
-            train_plain_ms=time_events(lambda: [k.plain(a) for a in k.calls], reps=1,
-                                       warmup=0 if k.name == 'fps' else 1),
-            train_bound_ms=max(b_bytes, b_ops) * 1e3,
-            train_bound_by='bytes' if b_bytes >= b_ops else 'operations')
+        row.update({
+            f'{prefix}_max_abs_err': err, f'{prefix}_ref_max': ref_max,
+            f'{prefix}_ms': time_events(lambda: [k.launch(a) for a in k.calls],
+                                        reps=3 if k.name == 'fps' else 10),
+            f'{prefix}_plain_ms': time_events(lambda: [k.plain(a) for a in k.calls],
+                                              reps=1, warmup=0 if k.name == 'fps' else 1),
+            f'{prefix}_bound_ms': max(b_bytes, b_ops) * 1e3,
+            f'{prefix}_bound_by': 'bytes' if b_bytes >= b_ops else 'operations'})
         if k.name == 'fps':
-            row['train_chain_floor_ms'] = time_events(
+            row[f'{prefix}_chain_floor_ms'] = time_events(
                 lambda: [fps.fps_chain_floor_cuda(*a) for _, a in k.calls], reps=3)
-            row['train_shapes'] = [list(a[0].shape) + [a[2]] for _, a in k.calls]
-        log(f'# train {k.name}: {row["train_launches"]} launches a step, agrees with '
-            f'the plain version (max abs error {err}); {row["train_ms"]:.3f} ms kernel, '
-            f'{row["train_plain_ms"]:.3f} ms plain, bound {row["train_bound_ms"]:.4f} ms '
-            f'({row["train_bound_by"]})'
-            + (f', chain floor {row["train_chain_floor_ms"]:.3f} ms'
+            row[f'{prefix}_shapes'] = [list(a[0].shape) + [a[2]] for _, a in k.calls]
+        log(f'# {prefix} {k.name}: {launches[k.name]} launches a step, agrees with '
+            f'the plain version (max abs error {err}); {row[f"{prefix}_ms"]:.3f} ms kernel, '
+            f'{row[f"{prefix}_plain_ms"]:.3f} ms plain, bound {row[f"{prefix}_bound_ms"]:.4f} ms '
+            f'({row[f"{prefix}_bound_by"]})'
+            + (f', chain floor {row[f"{prefix}_chain_floor_ms"]:.3f} ms'
                if k.name == 'fps' else ''))
+
+
+# ------------------------------------------------------------ MGAF training
+
+def mgaf_train_f32_compare(kernels, cfg, meta, batch):
+    """MGAF's first train step in f32 without TF32, from the same weights,
+    through the kernels and through the plain versions: the iou-score
+    targets (B1's only use on this path) identical, loss terms within 1e-5
+    relative, every gradient within 1e-4 max|g| + 1e-7 (the sparse residual
+    blocks' conv biases held to noise, as for FV2P)."""
+    from fv2p_torch.models.dense_heads import center_af_head as head_mod
+
+    def run(route):
+        targets, orig = [], head_mod.iouscore_targets
+
+        def rec(ret):
+            targets.append(orig(ret))
+            return targets[-1]
+
+        head_mod.iouscore_targets = rec
+        try:
+            with contextlib.ExitStack() as stack:
+                if route == 'plain':
+                    stack.enter_context(patched(kernels, plain_route))
+                loss, terms, _ = step.forward_loss(batch)
+                step.backward(loss)
+            sync()
+        finally:
+            head_mod.iouscore_targets = orig
+        return {k: float(v.detach()) for k, v in terms.items()}, _grads(step.model), targets
+
+    with full_f32():
+        step = make_train_step(cfg, meta, None)
+        tk, gk, ik = run('kernel')
+        tp, gp, ip = run('plain')
+    if len(ik) != 1 or len(ip) != 1 or not torch.equal(ik[0], ip[0]):
+        fail('mgaf train f32 step: iou-score targets differ between kernel and plain')
+    rec = compare_train_steps('mgaf train f32 step', tk, tp, gk, gp)
+    iou = ik[0]
+    rec['iouscore_targets'] = {'n': iou.numel(), 'above_0': int((iou > 0).sum()),
+                               'above_0.25': int((iou > 0.25).sum()),
+                               'max': float(iou.max())}
+    log(f'# mgaf train f32 step, kernels vs plain versions: iou-score targets identical '
+        f'({rec["iouscore_targets"]}); loss terms max relative difference '
+        f'{max(rec["loss_rel_diff"].values()):.3g}; {len(gp)} gradient tensors, worst '
+        f'error {rec["grad_worst_rel_to_max"]:.3g} of the tensor\'s max '
+        f'({rec["zero_by_construction_biases"]} biases normalised away held to noise)')
+    del step
+    torch.cuda.empty_cache()
+    return rec
+
+
+def bound_dcn_backward(args):
+    """The backward of one modulated_deform_conv call: its inputs and the
+    f32 output gradient read once, a gradient of each input written once;
+    two products a tap (the samples' gradient and the weights'), 2x the
+    forward's MACs."""
+    x, dy, dx, mask, w, ks, _ = args
+    b, h, wd, _ = x.shape
+    nbytes = 2 * sum(t.numel() * t.element_size() for t in (x, dy, dx, mask, w))
+    nbytes += b * h * wd * w.shape[-1] * 4
+    _, ops_s, macs = bound_dcn(args)
+    return nbytes / HBM_BYTES_S, 2 * ops_s, 2 * macs
+
+
+def dcn_train_times(step, batch):
+    """The modulated_deform_conv calls of one MGAF train step, each replayed
+    on its own inputs (CUDA events): forward alone, then forward + backward
+    with an f32 output gradient; the device memory forward + backward takes
+    beyond the inputs; the bounds of the forward and of the backward; and,
+    after every timing, forward + backward once more under the profiler:
+    the card's busy time and the kernels that take the most of it."""
+    from fv2p_torch.ops import dcn
+    calls, orig = [], dcn.modulated_deform_conv
+
+    def capture(*args):
+        calls.append(tuple(a.detach().clone() if torch.is_tensor(a) else a for a in args))
+        return orig(*args)
+
+    dcn.modulated_deform_conv = capture
+    try:
+        with torch.no_grad():
+            step.forward_loss(batch)
+    finally:
+        dcn.modulated_deform_conv = orig
+    sync()
+    def fwd_bwd_of(a):
+        x, dy, dx, mask, w, ks, g = a
+        leaves = [t.detach().requires_grad_() for t in (x, dy, dx, mask, w)]
+        dout = torch.randn(tuple(x.shape[:3]) + (w.shape[-1],), device=x.device)
+
+        def fwd_bwd():
+            for t in leaves:
+                t.grad = None
+            orig(*leaves, ks, g).backward(dout)
+        return fwd_bwd, leaves
+
+    per_call = []
+    for a in calls:
+        x, _, _, _, w, _, g = a
+        with torch.no_grad():
+            fwd = time_events(lambda: orig(*a), reps=5)
+        fwd_bwd, leaves = fwd_bwd_of(a)
+        both = time_events(fwd_bwd, reps=3)
+        for t in leaves:
+            t.grad = None
+        sync()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fwd_bwd()
+        sync()
+        extra = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        del fwd_bwd, leaves
+        f_bytes, f_ops, macs = bound_dcn(a)
+        b_bytes, b_ops, _ = bound_dcn_backward(a)
+        per_call.append({
+            'shape': [list(x.shape), list(w.shape), g], 'forward_ms': fwd,
+            'forward_backward_ms': both, 'backward_ms': both - fwd,
+            'extra_gib': extra, 'macs': macs,
+            'forward_bound_ms': max(f_bytes, f_ops) * 1e3,
+            'backward_bound_ms': max(b_bytes, b_ops) * 1e3,
+            'backward_bound_by': 'bytes' if b_bytes >= b_ops else 'operations'})
+    for a, c in zip(calls, per_call):
+        prof = profiled(fwd_bwd_of(a)[0])
+        c.update(profiled_wall_ms=prof['wall_ms'], device_busy_ms=prof['device_busy_ms'],
+                 top_device_ms=prof['top_device_ms'])
+    tot = {k: sum(c[k] for c in per_call) for k in
+           ('forward_ms', 'forward_backward_ms', 'backward_ms',
+            'forward_bound_ms', 'backward_bound_ms')}
+    log(f'# mgaf train DCN: {len(calls)} calls; forward {tot["forward_ms"]:.3f} ms, '
+        f'forward + backward {tot["forward_backward_ms"]:.3f} ms (backward '
+        f'{tot["backward_ms"]:.3f}); bounds forward {tot["forward_bound_ms"]:.4f}, '
+        f'backward {tot["backward_bound_ms"]:.4f} ms; per call (forward, backward ms, '
+        f'GiB beyond the inputs): '
+        f'{[(round(c["forward_ms"], 3), round(c["backward_ms"], 3), round(c["extra_gib"], 3)) for c in per_call]}')
+    for c in per_call:
+        top = {k: round(v, 3) for k, v in list(c['top_device_ms'].items())[:6]}
+        log(f'# mgaf train DCN {c["shape"]}: forward + backward busies the card '
+            f'{c["device_busy_ms"]:.3f} ms of a profiled {c["profiled_wall_ms"]:.3f} ms; '
+            f'by kernel: {top}')
+    return {'calls': per_call, **tot}
+
+
+def mgaf_train_phase(kernels, cfg, meta, rows):
+    """MGAF-3DSSD in train mode at its batch 4, bf16 compute and f32
+    parameters, on a train batch of the same kind as FV2P's (no raw points:
+    MGAF reads none): the f32 step against the plain versions, the timed
+    steps (each counted: B1 launches, no other kernel does), one more step
+    whose B1 calls are held against the plain version and timed (the
+    `mgaf_train_*` keys of `rows`), and the step's deformable convolutions,
+    forward and backward. Returns the record."""
+    from fv2p_torch.ops import cuda as kcuda
+    batch_size = int(cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU)
+    batch, host_s, caps = train_inputs(cfg, meta, batch_size, 0)
+    rec = {'batch': batch_size, 'batch_host_s': host_s, 'level_caps': caps,
+             'gt_boxes': int((batch['gt_boxes'][..., 7] > 0).sum()),
+             'total_steps': TRAIN_TOTAL_STEPS}
+    rec['f32_kernel_vs_plain'] = mgaf_train_f32_compare(kernels, cfg, meta, batch)
+    step = make_train_step(cfg, meta, torch.bfloat16)
+    rec['parameters'] = sum(p.numel() for p in step.model.parameters())
+    rec.update(timed_train_steps(kcuda, step, batch, ('rotated_iou',),
+                                   mgaf_train_targets))
+    first = rec['first_step_targets']
+    if first['mask_target_positives'] <= 0 or first['segm_foreground_cells'] <= 0:
+        fail(f'mgaf train: the first step has no targets: {first}')
+    tms = rec['ms']
+    log(f'# mgaf train bf16 step at batch {batch_size} ({rec["parameters"]} parameters, '
+        f'level capacities {caps}), ms median (quartiles) of {TRAIN_TIMED}: ' + ', '.join(
+            f'{k} {v["median"]:.2f} ({v["q1"]:.2f}-{v["q3"]:.2f})' for k, v in tms.items())
+        + f'; peak device memory {rec["peak_mem_gib"]:.2f} GiB')
+    passes = [module_times(step.model, lambda: step.step(batch),
+                           tail='loss_backward_optimizer') for _ in range(MODULE_REPS)]
+    rec['per_module_ms'] = {m: float(np.median([p[m] for p in passes]))
+                              for m in passes[0]}
+    log(f'# mgaf train step per module (ms, median of {MODULE_REPS}): '
+        f'{rec["per_module_ms"]}')
+    log(f'# mgaf train loss terms per step: {rec["loss_terms"]}')
+    log(f'# mgaf train launches per step: {rec["launches_per_step"]}')
+    log(f'# mgaf train first step targets: {first}')
+    calls, rec['launches'] = captured_train_calls(kernels, step, batch,
+                                                           ('rotated_iou',))
+    train_kernel_rows(calls, rec['launches'], rows, prefix='mgaf_train')
+    del calls
+    rec['dcn'] = dcn_train_times(step, batch)
+    # under the profiler and the sync debug mode, after every timed pass
+    rec['host_syncs'], rec['host_sync_sites'] = host_syncs(lambda: step.step(batch))
+    rec['profile'] = profiled(lambda: step.step(batch))
+    top = {k: round(v, 2) for k, v in list(rec['profile']['top_device_ms'].items())[:8]}
+    log(f'# mgaf train step: device busy {rec["profile"]["busy_share"]:.1%} of a profiled '
+        f'step ({rec["profile"]["device_busy_ms"]:.2f} of {rec["profile"]["wall_ms"]:.2f} ms); '
+        f'host waits {rec["host_syncs"]}, by line {rec["host_sync_sites"]}; by kernel: {top}')
+    del step, batch
+    torch.cuda.empty_cache()
+    return rec
+
+
+T_START = time.perf_counter()
 
 
 def main():
@@ -1425,14 +1672,17 @@ def main():
     # versions, then the timed steps (each counted: B1, B2, B3 launch, B4
     # does not), then one more step whose kernel calls are held against
     # the plain versions and timed
-    train_batch, train_host_s = train_inputs(meta)
+    fv2p_launched = ('rotated_iou', 'fps', 'three_nn')
+    train_batch, train_host_s, train_caps = train_inputs(cfg, meta, TRAIN_BATCH, TRAIN_POINTS)
     trec = {'batch': TRAIN_BATCH, 'points_cap': TRAIN_POINTS,
             'points_valid': train_batch['points_valid'].sum(1).tolist(),
             'gt_boxes': int((train_batch['gt_boxes'][..., 7] > 0).sum()),
-            'batch_host_s': train_host_s, 'total_steps': TRAIN_TOTAL_STEPS}
+            'batch_host_s': train_host_s, 'total_steps': TRAIN_TOTAL_STEPS,
+            'level_caps': train_caps}
+    log(f'# train batch: level capacities {train_caps} (the yaml\'s train caps)')
     trec['f32_kernel_vs_plain'] = train_f32_compare(kernels, cfg, meta, train_batch)
     step = make_train_step(cfg, meta, torch.bfloat16)
-    trec.update(timed_train_steps(kcuda, step, train_batch))
+    trec.update(timed_train_steps(kcuda, step, train_batch, fv2p_launched, train_targets))
     tms = trec['ms']
     log(f'# train bf16 step at batch {TRAIN_BATCH}, ms median (quartiles) of '
         f'{TRAIN_TIMED}: ' + ', '.join(
@@ -1446,8 +1696,13 @@ def main():
     log(f'# train loss terms per step: {trec["loss_terms"]}')
     log(f'# train launches per step: {trec["launches_per_step"]}')
     log(f'# train first step targets: {trec["first_step_targets"]}')
-    train_calls, trec['launches'] = captured_train_calls(kernels, step, train_batch)
+    train_calls, trec['launches'] = captured_train_calls(kernels, step, train_batch,
+                                                         fv2p_launched)
     train_kernel_rows(train_calls, trec['launches'], rows)
+    del train_calls
+
+    # 9c. MGAF training
+    mtrec = mgaf_train_phase(kernels, mcfg, meta, rows)
 
     # 10. under the profiler and the sync debug mode, after every timed pass
     record.update(profile_stats(model, batch, 'fv2p'))
@@ -1473,7 +1728,9 @@ def main():
         f'{ {row["name"]: round(row["device_ms"], 4) for row in rows} }; '
         f'B1 on MGAF\'s calls {mrec["b1"]["device_ms"]:.4f}')
     record.update(launches=launches, kernels=rows, nvidia_smi=smi,
-                  valid_detections=n_valid, mgaf=mrec, train=trec)
+                  valid_detections=n_valid, mgaf=mrec, train=trec, mgaf_train=mtrec,
+                  wall_s=time.perf_counter() - T_START)
+    log(f'# chip_smoke.py wall time {record["wall_s"]:.1f} s')
 
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / 'chip_smoke.json').write_text(json.dumps(record, indent=1))

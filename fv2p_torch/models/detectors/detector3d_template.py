@@ -1,7 +1,7 @@
 """Config-driven detector assembly (counterpart of
 ``fv2p_tpu/models/detectors/detector3d_template.py``), restricted to the
-detectors and modules ported so far: FV2P (inference and training) and
-MGAF-3DSSD (inference).
+detectors and modules ported so far: FV2P and MGAF-3DSSD, inference and
+training.
 
 Each of the 9 slots of the module topology is built iff its config key
 exists, and the forward runs the built slots in that order on one batch
@@ -20,7 +20,7 @@ from ..backbones_3d.pfe.residual_v2p_decoder import ResidualVoxelToPointDecoder
 from ..backbones_3d.spconv_backbone import VoxelResBackBone8x
 from ..backbones_3d.vfe.mean_vfe import MeanVFE
 from ..dense_heads.anchor_head import AnchorHeadSingle, anchor_head_loss
-from ..dense_heads.center_af_head import CenterAFHeadSingle
+from ..dense_heads.center_af_head import CenterAFHeadSingle, center_af_head_loss
 from ..dense_heads.point_head_simple import PointHeadSimple, point_head_loss
 from ..roi_heads.iouguided_roi_head import IoUGuidedRoIHead, roi_head_loss
 
@@ -190,12 +190,6 @@ class MGAF3DSSD(Detector3DTemplate):
     """Single-stage anchor-free detector: sparse trunk -> DCN BEV backbone ->
     CenterAF head (max-pool NMS + top-K decode) -> IoU-score-ranked NMS."""
 
-    def train_forward(self, batch_dict):
-        raise NotImplementedError(
-            'MGAF-3DSSD training is not in fv2p_torch yet (ROADMAP.md, queue A, '
-            'item 3: the DCN backward, center_target_assigner and '
-            'center_af_head_loss)')
-
 
 DETECTOR_REGISTRY = {'FromVoxelToPoint': FromVoxelToPoint,
                      'MGAF3DSSD': MGAF3DSSD}
@@ -203,11 +197,14 @@ DETECTOR_REGISTRY = {'FromVoxelToPoint': FromVoxelToPoint,
 
 def compute_training_loss(model, batch_dict):
     """The training loss of a train-mode forward's ``batch_dict``: for FV2P
-    the RPN, point-head and RCNN losses summed. Returns (loss, terms), every
-    term a 0-d tensor, ``terms['loss']`` the total."""
-    if not isinstance(model, FromVoxelToPoint):
-        raise _not_ported(f'training of {type(model).__name__}')
+    the RPN, point-head and RCNN losses summed, for MGAF-3DSSD the CenterAF
+    head's eight terms. Returns (loss, terms), every term a 0-d tensor,
+    ``terms['loss']`` the total."""
     cfg = model.model_cfg
+    if isinstance(model, MGAF3DSSD):
+        rpn_loss, tb = center_af_head_loss(cfg.DENSE_HEAD, batch_dict['head_ret'])
+        tb['loss'] = rpn_loss
+        return rpn_loss, tb
     head = model.dense_head
     rpn_loss, tb = anchor_head_loss(cfg.DENSE_HEAD, batch_dict['anchor_head_ret'],
                                     head.anchors_flat, model.num_class)

@@ -35,14 +35,45 @@ def level_capacities(base_capacity):
             'out': int(0.36 * c) + 256}
 
 
-def backbone_spec(backbone_name, grid_size, voxel_capacity, strict=True):
-    """Static conv topology of a backbone (sparse z = nz + 1)."""
+def select_mode_caps(caps_override, training):
+    """The level capacities a yaml's ``MODEL.BACKBONE_3D.LEVEL_CAPACITIES``
+    sets for one mode, or None for the derived defaults.
+
+    A flat ``{level: rows}`` dict applies to both modes; a nested
+    ``{'train': {...}, 'test': {...}}`` dict (either key optional) selects by
+    mode, and a missing mode key means the derived defaults. A dict that
+    mixes mode keys with flat level keys raises ValueError: a
+    ``_BASE_CONFIG_`` merge of a child's flat pins over a base's nested caps
+    gives that shape, and preferring the mode keys would drop the pins."""
+    if not caps_override:
+        return None
+    has_mode = 'train' in caps_override or 'test' in caps_override
+    flat_keys = set(caps_override) - {'train', 'test'}
+    if has_mode and flat_keys:
+        raise ValueError(
+            'LEVEL_CAPACITIES mixes per-mode keys with flat level keys '
+            f'({sorted(flat_keys)}); give the override as nested '
+            "{'train': {...}, 'test': {...}}")
+    if has_mode:
+        return caps_override.get('train' if training else 'test')
+    return caps_override
+
+
+def backbone_spec(backbone_name, grid_size, voxel_capacity,
+                  caps_override=None, strict=True):
+    """Static conv topology of a backbone (sparse z = nz + 1). The level
+    capacities are ``level_capacities(voxel_capacity)``, with the entries of
+    ``caps_override`` (level -> rows, one mode's: ``select_mode_caps``) in
+    their place."""
     if backbone_name not in ('VoxelResBackBone8x', 'VoxelBackBone8x'):
         raise NotImplementedError(backbone_name)
     nx, ny, nz = grid_size
+    caps = level_capacities(voxel_capacity)
+    if caps_override:
+        caps.update({k: int(v) for k, v in caps_override.items()})
     return {
         'levels': ['x_conv1', 'x_conv2', 'x_conv3', 'x_conv4', 'out'],
-        'caps': level_capacities(voxel_capacity),
+        'caps': caps,
         'shapes': {'x_conv1': (nz + 1, ny, nx)},
         'downs': [
             ('x_conv1', 'x_conv2', 3, 2, 1),
@@ -236,9 +267,11 @@ def sort_voxels_by_key(voxel_coords_zyx, shape_zyx):
     return np.argsort(keys, kind='stable')
 
 
-def prepare_batch_rulebooks(batch_np, backbone_name, grid_size, strict=True):
+def prepare_batch_rulebooks(batch_np, backbone_name, grid_size,
+                            caps_override=None, strict=True):
     """Sort a numpy batch's voxels into key order and attach collated
     rulebooks. Mutates and returns ``batch_np`` (numpy arrays).
+    ``caps_override``: one mode's level capacities, as ``backbone_spec``.
 
     batch_np needs: voxel_coords (B, cap, 3) zyx, voxel_valid (B, cap),
     voxels, voxel_num_points.
@@ -248,7 +281,8 @@ def prepare_batch_rulebooks(batch_np, backbone_name, grid_size, strict=True):
     b, cap = coords.shape[:2]
     nx, ny, nz = grid_size
     shape1 = (nz + 1, ny, nx)
-    spec = backbone_spec(backbone_name, grid_size, cap, strict=strict)
+    spec = backbone_spec(backbone_name, grid_size, cap,
+                         caps_override=caps_override, strict=strict)
 
     samples = []
     for i in range(b):

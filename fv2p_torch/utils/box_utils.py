@@ -67,3 +67,16 @@ def decode_rot_binres(pred_reg, num_head_bin=None):
                          2 * math.pi)
     ry = torch.where(ry > math.pi, ry - 2 * math.pi, ry)
     return ry.reshape(n, 1)
+
+
+def encode_rot_binres(ry_label, num_head_bin):
+    """The training encoding of a heading for the bin + residual loss:
+    (bin label int64, residual normalised by half a bin). Bin k covers
+    [k - 1/2, k + 1/2) bins around k * (2 pi / bins); both wraps are floor
+    modulos (``torch.remainder``, as JAX's ``%``)."""
+    angle_per_class = (2 * math.pi) / num_head_bin
+    heading = torch.remainder(ry_label, 2 * math.pi)
+    shift = torch.remainder(heading + angle_per_class / 2, 2 * math.pi)
+    bin_label = torch.floor(shift / angle_per_class).to(torch.int64)
+    res = shift - (bin_label.to(shift.dtype) * angle_per_class + angle_per_class / 2)
+    return bin_label, res / (angle_per_class / 2)

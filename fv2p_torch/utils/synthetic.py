@@ -44,14 +44,16 @@ BENCH_GT_ROWS = ((10.0, 0.0, -1.0, 3.9, 1.6, 1.5, 0.3, 1),
 
 
 def synthetic_batch_np(meta, batch_size, n_cap, n_fill, n_points, seed=0,
-                       gt=None, max_objs=50, pad_points=False):
+                       gt=None, max_objs=50, pad_points=False, caps_override=None):
     """Numpy batch: voxels from surface scans, VoxelResBackBone8x host
     rulebooks attached, and ``n_points`` raw points per sample from the same
     scans: sampled (wraparound-padded when a scan has fewer), or with
     ``pad_points`` the scan's points first and invalid zero rows after.
     ``gt``: None (no boxes), 'bench' (the JAX bench batch's two rows) or
     'scan' (the six cars of each scan, class 1), padded with zero rows to
-    ``max_objs``."""
+    ``max_objs``. ``caps_override``: the level capacities of the rulebooks
+    (``host_rulebook.select_mode_caps`` of a yaml's LEVEL_CAPACITIES), or
+    None for the derived defaults."""
     if gt not in (None, 'bench', 'scan'):
         raise ValueError(f'gt must be None, "bench" or "scan", not {gt!r}')
     rng = np.random.RandomState(seed)
@@ -71,7 +73,8 @@ def synthetic_batch_np(meta, batch_size, n_cap, n_fill, n_points, seed=0,
     batch = {'voxels': voxels, 'voxel_coords': coords,
              'voxel_num_points': nums, 'voxel_valid': valid}
     host_rulebook.prepare_batch_rulebooks(batch, 'VoxelResBackBone8x',
-                                          meta['grid_size'])
+                                          meta['grid_size'],
+                                          caps_override=caps_override)
     nf = int(meta.get('num_point_features', 4))
     pts = np.zeros((batch_size, n_points, nf), np.float32)
     pts_valid = np.ones((batch_size, n_points), bool)

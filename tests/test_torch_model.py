@@ -283,3 +283,47 @@ def test_full_slice_predictions(run):
     assert_close(tout['pred_boxes'], out['pred_boxes'])
     assert_close(tout['pred_scores'], out['pred_scores'])
     assert np.asarray(out['pred_valid']).sum() > 0
+
+
+def three_class_cfg():
+    """TINY_FV2P_CFG with the three anchor classes of fv2p_3classes.yaml
+    (Car, Pedestrian, Cyclist)."""
+    full = EasyDict()
+    cfg_from_yaml_file(str(REPO / 'tools/cfgs/kitti_models/FV2P/fv2p_3classes.yaml'), full)
+    cfg = copy.deepcopy(TINY_FV2P_CFG)
+    cfg.DENSE_HEAD.ANCHOR_GENERATOR_CONFIG = copy.deepcopy(
+        full.MODEL.DENSE_HEAD.ANCHOR_GENERATOR_CONFIG)
+    return cfg, list(full.CLASS_NAMES)
+
+
+def test_three_class_fv2p_forward_matches_jax():
+    """The tiny FV2P with three anchor classes, eval forward end to end:
+    the RoI labels (the RPN's best class of each kept proposal) and the
+    final labels exactly, boxes and scores at rtol 1e-4."""
+    cfg, classes = three_class_cfg()
+    jax_np, torch_np, meta = make_rulebook_batches()
+    jmodel = jax_build_network(cfg, num_class=3, class_names=classes, dataset_meta=meta)
+    jb = to_jax(jax_np)
+    variables = jinit(jmodel, {'params': jax.random.PRNGKey(5),
+                               'sampling': jax.random.PRNGKey(1),
+                               'dropout': jax.random.PRNGKey(2)}, dict(jb))
+    vnp = perturb_bn(jax.tree_util.tree_map(np.asarray, dict(variables)),
+                     np.random.RandomState(5))
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax_pointops, 'three_nn_interpolate', _three_nn_interpolate_pallas)
+        out = japply(jmodel, jax.tree_util.tree_map(jnp.asarray, vnp), dict(jb))
+    tmodel = torch_models.build_network(cfg, 3, classes, meta, device='cpu')
+    load_flax_variables(tmodel, vnp)
+    tout = tmodel(batch_to_torch(torch_np, 'cpu'))
+    assert_equal(tout['roi_valid'], out['roi_valid'])
+    assert_equal(tout['roi_labels'], out['roi_labels'])
+    assert_close(tout['rois'], out['rois'])
+    for key in ('batch_cls_preds', 'batch_box_preds', 'batch_iouscore_preds'):
+        assert_close(tout[key], out[key])
+    assert_equal(tout['pred_valid'], out['pred_valid'])
+    assert_equal(tout['pred_labels'], out['pred_labels'])
+    assert_close(tout['pred_boxes'], out['pred_boxes'])
+    assert_close(tout['pred_scores'], out['pred_scores'])
+    labels = np.asarray(out['roi_labels'])[np.asarray(out['roi_valid'])]
+    assert len(set(labels.tolist())) > 1
+    assert np.asarray(out['pred_valid']).sum() > 0

@@ -85,6 +85,10 @@ def test_kitti_fv2p_yaml_builds_at_full_width():
 MGAF_YAMLS = ('kitti_models/MGAF-3DSSD/mgaf-3dssd.yaml',
               'kitti_models/MGAF-3DSSD/mgaf-3dssd_3classes.yaml',
               'waymo_models/MGAF-3DSSD/waymo_mgaf-3dssd_e36.yaml')
+# FV2P yamls whose parameter count is held to JAX's beside the MGAF ones
+# (fv2p.yaml has its own test above)
+FV2P_YAMLS = {'kitti_models/FV2P/fv2p_3classes.yaml': 20_995_058,
+              'waymo_models/FV2P/waymo_fv2p_e30.yaml': 20_968_814}
 
 
 def _jax_param_count(model_cfg, class_names, num_point_features):
@@ -105,8 +109,11 @@ def _jax_param_count(model_cfg, class_names, num_point_features):
                for x in jax.tree_util.tree_leaves(shapes['params']))
 
 
-@pytest.mark.parametrize('yaml_path', MGAF_YAMLS)
+@pytest.mark.parametrize('yaml_path', MGAF_YAMLS + tuple(FV2P_YAMLS))
 def test_mgaf_yaml_builds_at_full_width(yaml_path):
+    """Each yaml builds at full width with the JAX model's parameter count;
+    for MGAF also its four deformable convs and the head's 768 input
+    channels."""
     cfg = EasyDict()
     cfg_from_yaml_file(str(REPO / 'tools/cfgs' / yaml_path), cfg)
     meta = dataset_meta_from_cfg(cfg.DATA_CONFIG, 'test')
@@ -118,6 +125,10 @@ def test_mgaf_yaml_builds_at_full_width(yaml_path):
     n_params = sum(p.numel() for p in model.parameters())
     assert n_params == _jax_param_count(cfg.MODEL, cfg.CLASS_NAMES,
                                         meta['num_point_features'])
+    if yaml_path in FV2P_YAMLS:
+        assert n_params == FV2P_YAMLS[yaml_path]
+        assert model.dense_head.num_class == len(cfg.CLASS_NAMES)
+        return
     dcns = {n: m for n, m in model.named_modules() if isinstance(m, MdeformConvBlock)}
     assert sorted(dcns) == ['backbone_2d.deblock0.dcn', 'backbone_2d.deblock1.dcn',
                             'backbone_2d.deblock2.dcn', 'dense_head.feature_adapt.mdcn']

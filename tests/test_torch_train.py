@@ -44,7 +44,6 @@ from fv2p_tpu.utils import iou3d as jax_iou3d
 from fv2p_tpu.utils import loss_utils as jax_loss
 from tests.jitu import japply, jgrad, jinit
 from tests.test_fv2p_model import TINY_FV2P_CFG
-from tests.test_mgaf_model import TINY_MODEL_CFG
 from tests.test_torch_model import (_three_nn_interpolate_pallas, assert_close,
                                     assert_equal, make_rulebook_batches,
                                     perturb_bn, t, to_jax)
@@ -197,6 +196,49 @@ def test_anchor_head_loss_matches_jax():
     got_loss, got_tb = torch_anchor.anchor_head_loss(
         TINY_FV2P_CFG.DENSE_HEAD, {k: t(v) for k, v in ret.items()},
         t(anchors), 1)
+    assert sorted(got_tb) == sorted(ref_tb)
+    for k in ref_tb:
+        assert_close(got_tb[k], ref_tb[k])
+    assert_close(got_loss, ref_loss)
+
+
+def test_three_class_anchor_targets_and_loss_match_jax():
+    """The anchor targets and anchor_head_loss of the tiny FV2P with
+    fv2p_3classes.yaml's three anchor classes (per-class thresholds), on gt
+    of all three classes."""
+    from tests.test_torch_model import three_class_cfg
+    cfg, classes = three_class_cfg()
+    meta = _tiny_meta()
+    ch = int(sum(cfg.BACKBONE_2D.NUM_UPSAMPLE_FILTERS))
+    jhead = jax_anchor.AnchorHeadSingle(
+        model_cfg=StaticConfig(cfg.DENSE_HEAD), input_channels=ch, num_class=3,
+        class_names=tuple(classes), grid_size=tuple(meta['grid_size']),
+        point_cloud_range=tuple(meta['point_cloud_range']))
+    thead = torch_anchor.AnchorHeadSingle(cfg.DENSE_HEAD, ch, 3, tuple(meta['grid_size']),
+                                          tuple(meta['point_cloud_range']))
+    gt = _rpn_gt()
+    gt[0, 3, 7] = 2                                  # the 1.0 x 0.6 box: a pedestrian
+    gt[0, 5] = [2.0, -2.2, -0.6, 1.76, 0.6, 1.73, 0.4, 3]
+    gt[1, 1] = [4.4, 1.2, -0.6, 0.8, 0.6, 1.73, -1.0, 2]
+    anchors = jhead._anchors().reshape(-1, 7)
+    ref = jhead._assign_targets(jnp.asarray(gt), jnp.asarray(anchors))
+    got = thead.assign_targets(t(gt))
+    assert_equal(got['box_cls_labels'], ref['box_cls_labels'])
+    assert_close(got['box_reg_targets'], ref['box_reg_targets'])
+    assert_close(got['reg_weights'], ref['reg_weights'])
+    labels = np.asarray(ref['box_cls_labels'])
+    assert set(np.unique(labels[labels > 0]).tolist()) == {1, 2, 3}
+    rng = np.random.RandomState(6)
+    na = anchors.shape[0]
+    ret = {'cls_preds': rng.randn(2, na, 3).astype(np.float32) * 2,
+           'box_preds': rng.randn(2, na, 7).astype(np.float32) * 0.3,
+           'dir_cls_preds': rng.randn(2, na, 2).astype(np.float32)}
+    ret.update({k: np.asarray(v) for k, v in ref.items()})
+    ref_loss, ref_tb = jax_anchor.anchor_head_loss(
+        StaticConfig(cfg.DENSE_HEAD), {k: jnp.asarray(v) for k, v in ret.items()},
+        jnp.asarray(anchors), 3)
+    got_loss, got_tb = torch_anchor.anchor_head_loss(
+        cfg.DENSE_HEAD, {k: t(v) for k, v in ret.items()}, t(anchors), 3)
     assert sorted(got_tb) == sorted(ref_tb)
     for k in ref_tb:
         assert_close(got_tb[k], ref_tb[k])
@@ -570,14 +612,6 @@ def test_train_mode_never_calls_b4(monkeypatch):
                      t(rng.randn(3, 27, 3).astype(np.float32) * 0.5))
     out.float().sum().backward()
     assert out.shape == (3, 27, 128)
-
-
-def test_mgaf_training_is_not_ported():
-    from tests.test_mgaf_model import make_batch
-    _, meta = make_batch()
-    model = torch_models.build_network(TINY_MODEL_CFG, 1, ['Car'], meta, device='cpu')
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        model.train()({})
 
 
 def test_synthetic_train_batch():
