@@ -81,6 +81,38 @@ replayed, forward and forward + backward, beside their bounds. The record
 is `mgaf_train` in chip_smoke.json, the `mgaf_train_*` keys of the
 `kernels` line.
 
+Then the runners on the committed KITTI fixture (data/kitti; the script
+fails without it), between FV2P's training and MGAF's:
+
+  * kitti_eval: fv2p_torch.tools.eval_utils.eval_one_epoch over the 24 val
+    scans, fv2p.yaml at the 40000-voxel test cap with 24000-point scans,
+    bf16, batch 4 (6 batches), 4 spawned loader workers, seeded weights.
+    The first run is counted (all four kernels launch) and every kernel
+    call captured: B1's calls (NMS, the recall counter, the evaluator) and
+    the first batch's calls of B2-B4 are held against the plain versions
+    and timed (`kitti_eval_*` keys of the `kernels` line). The second run
+    gives the seconds per scan (the first batch apart), the loader's wait
+    per batch, the forward's median, voxels and points per scan, recall and
+    AP (near 0: seeded weights). One batch in f32 through the kernels and
+    through the plain versions must give the same det_annos (names exact,
+    floats within 1e-5) and recall counts. MGAF-3DSSD's eval goes through
+    the same runner (BatchNorm calibrated on the first batch; B1 only).
+  * kitti_evaluator: the val ground truth scored against itself on the
+    card: Car 3D AP_R40 must be 100 for moderate and hard and, with 32 easy
+    cars, 100 (32 - 1) / 40 = 77.5 for easy (the official 41-point
+    sampling); and kitti_eval's AP dict must be the same with B1's plain
+    version on the CPU, key for key.
+  * kitti_train: fv2p_torch.tools.train on the 32 train scans (fv2p.yaml,
+    bf16, batch 2, full augmentation with gt sampling, the yaml's train
+    level caps, 4 spawned workers, a tenth of the yaml's peak learning rate:
+    at 0.01 the two-epoch schedule overflows): one epoch and its checkpoint, then the
+    runner again for two epochs with --max_ckpt_save_num 1, which must
+    resume with the saved parameters, optimizer state and one-cycle step
+    bit for bit and leave one checkpoint; every loss term finite; the step
+    through the runner (loader wait included), the loader's wait, and the
+    host seconds a batch with the C++ and the numpy rulebook builders. Its
+    checkpoints go to output/chip_smoke/.
+
 Exits non-zero on any failure, and without a CUDA card. The second-to-last
 lines are a JSON ``kernels`` object (FV2P's path) and the nvidia-smi name and
 power limit; the last line is ``{"ok": true, "device": {...}}``. A fuller
@@ -106,6 +138,12 @@ BATCH, N_CAP, N_FILL, N_POINTS, SEED = 4, 16000, 14000, 18000, 0
 # tools/bench_train.py schedules it
 TRAIN_BATCH, TRAIN_POINTS, TRAIN_TOTAL_STEPS = 2, 24000, 1000
 TRAIN_WARMUP, TRAIN_TIMED = 2, 10
+# the KITTI runner phases: the committed fixture, the runners' batch sizes
+# (eval 4 as the bench, train fv2p.yaml's 2) and spawned loader workers
+KITTI = REPO / 'data' / 'kitti'
+KITTI_BATCH, KITTI_TRAIN_BATCH, KITTI_WORKERS = 4, 2, 4
+KITTI_F32_ATOL = 1e-5
+KITTI_TRAIN_LR = 0.001          # fv2p.yaml's LR is 0.01
 
 # H100 SXM data sheet (dense): HBM rate, f32 outside the tensor cores, bf16
 HBM_BYTES_S, F32_OPS_S, BF16_OPS_S = 3.35e12, 67e12, 989e12
@@ -1200,12 +1238,12 @@ def zero_by_construction(name):
 
 
 def train_kernel_rows(train_calls, launches, rows, prefix='train'):
-    """A train path's calls of each kernel against the plain versions, and
-    their times, added to each kernel's row of the `kernels` line under
-    `prefix`_* keys (a kernel the path does not launch gets its count, 0)."""
+    """A path's calls of each kernel against the plain versions, and their
+    times, added to each kernel's row of the `kernels` line under `prefix`_*
+    keys (a kernel the path does not launch gets its count, 0)."""
     from fv2p_torch.ops.cuda import fps
     bounds = {'rotated_iou': bound_rotated_iou, 'fps': bound_fps,
-              'three_nn': bound_three_nn}
+              'three_nn': bound_three_nn, 'sa_group': bound_sa_group}
     for row in rows:
         k = train_calls[row['name']]
         row[f'{prefix}_launches'] = launches[k.name]
@@ -1225,12 +1263,18 @@ def train_kernel_rows(train_calls, launches, rows, prefix='train'):
             row[f'{prefix}_chain_floor_ms'] = time_events(
                 lambda: [fps.fps_chain_floor_cuda(*a) for _, a in k.calls], reps=3)
             row[f'{prefix}_shapes'] = [list(a[0].shape) + [a[2]] for _, a in k.calls]
-        log(f'# {prefix} {k.name}: {launches[k.name]} launches a step, agrees with '
-            f'the plain version (max abs error {err}); {row[f"{prefix}_ms"]:.3f} ms kernel, '
+        if k.name == 'three_nn':
+            row[f'{prefix}_library_ms'] = time_events(
+                lambda: [library_three_nn(a) for a in k.calls], reps=3)
+        log(f'# {prefix} {k.name}: {launches[k.name]} launches, {len(k.calls)} calls '
+            f'replayed, agree with the plain version (max abs error {err}); '
+            f'{row[f"{prefix}_ms"]:.3f} ms kernel, '
             f'{row[f"{prefix}_plain_ms"]:.3f} ms plain, bound {row[f"{prefix}_bound_ms"]:.4f} ms '
             f'({row[f"{prefix}_bound_by"]})'
             + (f', chain floor {row[f"{prefix}_chain_floor_ms"]:.3f} ms'
-               if k.name == 'fps' else ''))
+               if k.name == 'fps' else '')
+            + (f', library {row[f"{prefix}_library_ms"]:.3f} ms (cdist + topk)'
+               if k.name == 'three_nn' else ''))
 
 
 # ------------------------------------------------------------ MGAF training
@@ -1427,6 +1471,358 @@ def mgaf_train_phase(kernels, cfg, meta, rows):
     return rec
 
 
+# ------------------------------------------------------- KITTI runner phases
+
+def quiet_logger():
+    """The runners' logger for this script: warnings only (the numbers the
+    runners log are printed here from their records)."""
+    import logging
+    logger = logging.getLogger('chip_smoke.runner')
+    logger.setLevel(logging.WARNING)
+    return logger
+
+
+def check_kitti_fixture():
+    need = [KITTI / 'kitti_infos_train.pkl', KITTI / 'kitti_infos_val.pkl',
+            KITTI / 'kitti_dbinfos_train.pkl', KITTI / 'gt_database',
+            KITTI / 'training' / 'velodyne']
+    missing = [str(p.relative_to(REPO)) for p in need if not p.exists()]
+    if missing:
+        fail(f'the KITTI fixture is missing {missing}: data/kitti must go with the copy')
+
+
+def state_of(trainer):
+    """A copy of a trainer's parameters, buffers and optimizer state."""
+    opt = trainer.optimizer.state_dict()
+    return ({k: v.detach().clone() for k, v in trainer.model.state_dict().items()},
+            opt['count'], [m.clone() for m in opt['mu']], [n.clone() for n in opt['nu']])
+
+
+def saved_state(path):
+    ckpt = torch.load(path, map_location='cuda', weights_only=True)
+    opt = ckpt['optimizer_state']
+    return ckpt['model_state'], opt['count'], list(opt['mu']), list(opt['nu'])
+
+
+def states_equal(a, b):
+    """Bit for bit: every tensor of the model's state, the one-cycle step and
+    both Adam moments."""
+    return (sorted(a[0]) == sorted(b[0])
+            and all(torch.equal(a[0][k], b[0][k]) for k in a[0])
+            and a[1] == b[1] and len(a[2]) == len(b[2])
+            and all(torch.equal(x, y) for x, y in zip(a[2] + a[3], b[2] + b[3])))
+
+
+def kitti_eval_phase(kernels, rows, cfg, label, launched, calibrate=False):
+    """``eval_one_epoch`` over the 24 val scans of data/kitti at the test cap
+    (batch 4, 4 spawned loader workers, bf16, seeded weights; with
+    `calibrate` the BatchNorm statistics are set on the first batch, as
+    MGAF needs). The first run is counted (each kernel in `launched` must
+    launch, no other) and every kernel call captured: B1's calls (NMS, the
+    recall counter, the evaluator) and the first batch's calls of the other
+    kernels are held against the plain versions and timed (the
+    `<label>_*` keys of `rows`). The second run gives the times, recall and
+    AP. Returns (record, model, first batch on the card, dataset, det_annos,
+    AP dict)."""
+    from fv2p_torch.datasets import batch_to_numpy, build_dataloader, dataset_meta_from_cfg
+    from fv2p_torch.ops import cuda as kcuda
+    from fv2p_torch.tools import eval_utils
+    from fv2p_torch.tools import test as test_runner
+    from fv2p_torch.utils.synthetic import batch_to_torch
+    logger = quiet_logger()
+    test_set = test_runner.make_dataset(cfg, training=False, logger=logger)
+    loader = build_dataloader(test_set, KITTI_BATCH, KITTI_WORKERS, training=False,
+                              pin_memory=True)
+    t0 = time.perf_counter()
+    batches = [batch_to_numpy(b) for b in loader]       # starts the workers
+    rec = {'scans': len(test_set), 'batches': len(batches),
+           'first_pass_s': time.perf_counter() - t0,
+           'voxels_per_scan': np.concatenate([b['voxel_valid'].sum(1) for b in batches]).tolist(),
+           'voxel_cap': int(batches[0]['voxel_valid'].shape[1])}
+    if 'points_valid' in batches[0]:
+        rec['points_per_scan'] = np.concatenate(
+            [b['points_valid'].sum(1) for b in batches]).tolist()
+        rec['points_cap'] = int(batches[0]['points_valid'].shape[1])
+    first_np, _ = eval_utils.pad_batch_to_size(batches[0], KITTI_BATCH)
+    first = batch_to_torch(first_np, 'cuda')
+    meta = dataset_meta_from_cfg(cfg.DATA_CONFIG, 'test')
+    model = make_model(cfg, meta, torch.bfloat16, calibrate_on=first if calibrate else None)
+    out_dir = REPO / 'output' / 'chip_smoke' / label
+    out_dir.mkdir(parents=True, exist_ok=True)
+
+    cap = [Kernel(k.name, k.module, k.entries, k.source, k.replaces) for k in kernels]
+    kcuda.reset_launch_counts()
+    with patched(cap, capturing):
+        ret_a, _ = eval_utils.eval_one_epoch(cfg, model, loader, test_set, out_dir, logger,
+                                             KITTI_BATCH)
+    sync()
+    launches = dict(kcuda.launch_counts)
+    for name, n in launches.items():
+        if (name in launched) != (n > 0):
+            fail(f'{label}: kernel {name} launched {n} times over the val set; '
+                 f'the path launches {sorted(launched)}')
+    n_batches = len(batches)
+    for k in cap:
+        if launches[k.name] != len(k.calls):
+            fail(f'{label} {k.name}: {launches[k.name]} launches, {len(k.calls)} calls')
+        if k.name != 'rotated_iou':
+            k.calls = k.calls[:launches[k.name] // n_batches]
+    b1 = next(k for k in cap if k.name == 'rotated_iou')
+    rec['launches'] = launches
+    rec['launches_per_batch'] = {n: v / n_batches for n, v in launches.items()}
+    rec['b1_calls'] = {fn: sum(1 for c in b1.calls if c[0] == fn) for fn in b1.entries}
+    log(f'# {label}: {len(test_set)} val scans in {n_batches} batches of {KITTI_BATCH}; '
+        f'launches {launches} ({rec["launches_per_batch"]} a batch, B1 with the recall '
+        f'counter and the evaluator: {rec["b1_calls"]})')
+    train_kernel_rows({k.name: k for k in cap}, launches, rows, prefix=label)
+    del cap, b1
+
+    ret, annos = eval_utils.eval_one_epoch(cfg, model, loader, test_set, out_dir, logger,
+                                           KITTI_BATCH)
+    rec['result'] = ret
+    rec['recall'] = {k: v for k, v in ret.items() if k.startswith('recall/')}
+    rec['ap'] = {k: v for k, v in ret.items() if '/' in k and not k.startswith('recall/')}
+    for key in ('sec_per_example', 'sec_per_example_first_batch', 'loader_wait_s_per_batch',
+                'forward_ms_median'):
+        rec[key] = ret[key]
+    vox = np.array(rec['voxels_per_scan'])
+    log(f'# {label}: {ret["sec_per_example"] * 1e3:.2f} ms a scan through the runner '
+        f'(first batch apart; the first batch {ret["sec_per_example_first_batch"] * 1e3:.2f}), '
+        f'forward median {ret["forward_ms_median"]:.2f} ms a batch of {KITTI_BATCH}, '
+        f'loader wait {ret["loader_wait_s_per_batch"] * 1e3:.2f} ms a batch; voxels a scan '
+        f'{int(vox.min())}-{int(vox.max())} (mean {vox.mean():.0f}) of {rec["voxel_cap"]}'
+        + (f', points a scan {min(rec["points_per_scan"])}-{max(rec["points_per_scan"])} '
+           f'of {rec["points_cap"]}' if 'points_per_scan' in rec else ''))
+    log(f'# {label} recall: {rec["recall"]}')
+    log(f'# {label} AP (seeded weights): {rec["ap"]}')
+    for k in (ret_a, ret):
+        if any(not np.isfinite(v) for v in k.values()):
+            fail(f'{label}: a result is not finite: {k}')
+    del loader
+    return rec, model, first, first_np, test_set, annos, ret
+
+
+def kitti_eval_f32(kernels, cfg, test_set, first, first_np):
+    """One val batch in f32 without TF32 through the kernels and through the
+    plain versions, forward, recall counter and prediction dicts: names and
+    counts identical, floats within KITTI_F32_ATOL."""
+    from fv2p_torch.datasets import dataset_meta_from_cfg
+    from fv2p_torch.tools import eval_utils
+    meta = dataset_meta_from_cfg(cfg.DATA_CONFIG, 'test')
+    recall_fn = eval_utils.make_recall_fn(tuple(cfg.MODEL.POST_PROCESSING.RECALL_THRESH_LIST))
+
+    def run(model):
+        out = forward(model, first)
+        pred = {k: out[k].float().cpu().numpy() if out[k].is_floating_point()
+                else out[k].cpu().numpy() for k in eval_utils.PRED_KEYS}
+        counts = recall_fn(out['pred_boxes'], out['pred_valid'], first['gt_boxes'],
+                           out.get('rois'))
+        return test_set.generate_prediction_dicts(first_np, pred, cfg.CLASS_NAMES), counts
+
+    with full_f32():
+        model32 = make_model(cfg, meta, None)
+        annos_k, counts_k = run(model32)
+        with patched(kernels, plain_route):
+            annos_p, counts_p = run(model32)
+    worst = 0.0
+    for ak, ap in zip(annos_k, annos_p):
+        if list(ak['name']) != list(ap['name']):
+            fail('kitti_eval f32: detections differ between kernels and plain versions')
+        for key in ('bbox', 'dimensions', 'location', 'rotation_y', 'score', 'alpha',
+                    'boxes_lidar'):
+            if ak[key].size:
+                worst = max(worst, float(np.abs(ak[key] - ap[key]).max()))
+    if worst > KITTI_F32_ATOL:
+        fail(f'kitti_eval f32: det_annos differ by {worst} > {KITTI_F32_ATOL}')
+    for a, b in zip(counts_k[:2], counts_p[:2]):
+        if not np.array_equal(a, b):
+            fail(f'kitti_eval f32: recall counts differ: {counts_k} vs {counts_p}')
+    n = sum(len(a['name']) for a in annos_k)
+    log(f'# kitti_eval f32 batch, kernels vs plain versions: {n} detections, names '
+        f'identical, max abs difference {worst}; recall counts {counts_k[0].tolist()} '
+        f'(final) {counts_k[1].tolist()} (RoIs) of {counts_k[2]} gt, identical')
+    del model32
+    torch.cuda.empty_cache()
+    return {'detections': n, 'max_abs_diff': worst, 'recall_counts': counts_k[0].tolist(),
+            'roi_recall_counts': counts_k[1].tolist(), 'gt': counts_k[2]}
+
+
+def kitti_evaluator_phase(test_set, annos, ap_kernel):
+    """The val ground truth scored against itself as detections (score 1)
+    on the card, and the kitti_eval run's AP dict recomputed with B1's plain
+    version on the CPU: equal key for key."""
+    import copy
+    from fv2p_torch.datasets.kitti.kitti_object_eval import eval as kitti_eval
+    from fv2p_torch.ops import cuda as kcuda
+    gt = [copy.deepcopy(info['annos']) for info in test_set.kitti_infos]
+    dets = []
+    for g in gt:
+        keep = g['name'] != 'DontCare'
+        d = {k: g[k][keep] for k in ('name', 'truncated', 'occluded', 'alpha', 'bbox',
+                                     'dimensions', 'location', 'rotation_y')}
+        d['score'] = np.ones(int(keep.sum()))
+        dets.append(d)
+    kcuda.reset_launch_counts()
+    _, ret = kitti_eval.get_official_eval_result(copy.deepcopy(gt), dets, ['Car'],
+                                                 device='cuda')
+    sync()
+    launches = kcuda.launch_counts['rotated_iou']
+    if launches == 0:
+        fail('kitti_evaluator: B1 was not launched')
+    # the official 41-point recall sampling: with n valid gt boxes of a
+    # difficulty, AP_R40 of perfect detections is 100 (min(n, 41) - 1) / 40
+    rec = {'b1_launches': launches, 'car_3d_r40': {}, 'expected': {}, 'valid_gt': {}}
+    for d, diff in enumerate(('easy', 'moderate', 'hard')):
+        n = sum(kitti_eval.clean_data(g, dt, 0, d)[0] for g, dt in zip(gt, dets))
+        want = 100.0 * (min(n, 41) - 1) / 40
+        got = ret[f'Car_3d/{diff}_R40']
+        rec['car_3d_r40'][diff], rec['expected'][diff], rec['valid_gt'][diff] = got, want, n
+        if abs(got - want) > 1e-9:
+            fail(f'kitti_evaluator: Car 3D AP_R40 {diff} {got}, expected {want} ({n} gt)')
+    log(f'# kitti_evaluator: the val gt as detections, Car 3D AP_R40 '
+        f'{rec["car_3d_r40"]} with {rec["valid_gt"]} valid gt boxes (perfect detections '
+        f'give 100 (min(n, 41) - 1) / 40); B1 launched {launches} times')
+    _, ap_plain = test_set.evaluation(annos, ['Car'], device='cpu')
+    ap_plain = {k: float(v) for k, v in ap_plain.items()}
+    ap_kernel = {k: v for k, v in ap_kernel.items() if k in ap_plain}
+    if ap_plain != ap_kernel:
+        diff = {k: (ap_kernel.get(k), v) for k, v in ap_plain.items() if ap_kernel.get(k) != v}
+        fail(f'kitti_evaluator: the AP dict differs between B1 on the card and its plain '
+             f'version on the CPU: {diff}')
+    rec['plain_cpu_ap_equal'] = True
+    log(f'# kitti_evaluator: the kitti_eval AP dict ({len(ap_plain)} keys) is the same '
+        f'with B1 on the card and with its plain version on the CPU')
+    return rec
+
+
+def host_batch_seconds(train_set, n_batches):
+    """Host seconds a train batch (KITTI_TRAIN_BATCH scans, augmentation and
+    rulebooks, collated) takes in this process, with the C++ rulebook
+    builder and with the numpy one, and the overflow counters of those
+    samples."""
+    from fv2p_torch.ops.sparse import host_rulebook
+    out = {}
+    host_rulebook.reset_overflow_stats()
+    for route in ('cpp', 'numpy'):
+        train_set.rng = np.random.RandomState(SEED)
+        saved = host_rulebook.build_sample_rulebooks
+        if route == 'numpy':
+            host_rulebook.build_sample_rulebooks = host_rulebook.build_sample_rulebooks_plain
+        try:
+            t0 = time.perf_counter()
+            for i in range(n_batches):
+                idx = range(i * KITTI_TRAIN_BATCH, (i + 1) * KITTI_TRAIN_BATCH)
+                train_set.collate_batch([train_set[j] for j in idx])
+            out[route] = (time.perf_counter() - t0) / n_batches
+        finally:
+            host_rulebook.build_sample_rulebooks = saved
+    out['overflow'] = host_rulebook.get_overflow_stats()
+    return out
+
+
+def kitti_train_phase(kernels, rows, cfg):
+    """``fv2p_torch.tools.train`` on the 32 train scans: fv2p.yaml, bf16,
+    batch 2, full augmentation with gt sampling, the yaml's train level
+    capacities, 4 spawned loader workers, the peak learning rate at
+    KITTI_TRAIN_LR. One epoch (16 steps) and its
+    checkpoint; then the runner again for 2 epochs with
+    --max_ckpt_save_num 1: it must resume from that file with the saved
+    parameters, optimizer state and one-cycle step bit for bit, take the
+    second epoch and leave one checkpoint. Each run is counted (B1, B2, B3
+    launch, B4 does not); every loss term of every step must be finite."""
+    import shutil
+    from fv2p_torch.ops import cuda as kcuda
+    from fv2p_torch.tools import test as test_runner
+    from fv2p_torch.tools import train as train_runner
+    out = REPO / 'output' / 'chip_smoke' / 'kitti_train'
+    shutil.rmtree(out, ignore_errors=True)
+    argv = ['--cfg_file', str(CFG), '--batch_size', str(KITTI_TRAIN_BATCH),
+            '--workers', str(KITTI_WORKERS), '--output_dir', str(out)]
+    # the yaml's peak learning rate over a two-epoch one-cycle schedule
+    # drives the seeded bf16 model past overflow in the second epoch
+    # (background RoIs' box codes; ROADMAP.md C3): a tenth of it here
+    lr = ['--set', 'OPTIMIZATION.LR', str(KITTI_TRAIN_LR)]
+    launched = ('rotated_iou', 'fps', 'three_nn')
+
+    def counted(extra, on_resume=None):
+        kcuda.reset_launch_counts()
+        t0 = time.perf_counter()
+        run = train_runner.main(argv + extra, on_resume=on_resume)
+        sync()
+        run['wall_s'] = time.perf_counter() - t0
+        run['launches'] = dict(kcuda.launch_counts)
+        for name, n in run['launches'].items():
+            if (name in launched) != (n > 0):
+                fail(f'kitti_train: kernel {name} launched {n} times in '
+                     f'{len(run["steps"])} steps; the path launches {launched}')
+        return run
+
+    first = counted(['--epochs', '1'] + lr)
+    ckpt_dir = out / 'ckpt'
+    names = [p.name for _, p in test_runner.checkpoint_list(ckpt_dir)]
+    if names != ['checkpoint_epoch_1.pth']:
+        fail(f'kitti_train: after one epoch the checkpoints are {names}')
+    live = state_of(first.pop('trainer'))
+    saved = saved_state(ckpt_dir / 'checkpoint_epoch_1.pth')
+    if not states_equal(live, saved):
+        fail('kitti_train: the checkpoint differs from the trainer that wrote it')
+    del saved
+    resumed = {}
+
+    def on_resume(trainer, path):
+        resumed['path'] = path
+        resumed['equal'] = states_equal(state_of(trainer), live)
+        resumed['step'] = trainer.step_count
+
+    second = counted(['--epochs', '2', '--max_ckpt_save_num', '1'] + lr, on_resume=on_resume)
+    second.pop('trainer')
+    del live
+    torch.cuda.empty_cache()
+    if resumed.get('path') is None or resumed['path'].name != 'checkpoint_epoch_1.pth':
+        fail(f'kitti_train: the second run did not resume from epoch 1: {resumed}')
+    if not resumed['equal']:
+        fail('kitti_train: the resumed state differs from the saved one')
+    names = [p.name for _, p in test_runner.checkpoint_list(ckpt_dir)]
+    if names != ['checkpoint_epoch_2.pth']:
+        fail(f'kitti_train: with --max_ckpt_save_num 1 the checkpoints are {names}')
+    steps = first['steps'] + second['steps']
+    if len(first['steps']) != 16 or len(second['steps']) != 16:
+        fail(f'kitti_train: {len(first["steps"])} + {len(second["steps"])} steps, expected 16 + 16')
+    bad = [(s['it'], k) for s in steps for k, v in s.items() if not np.isfinite(v)]
+    if bad:
+        fail(f'kitti_train: non-finite loss terms (step, term): {bad}')
+    # the first step of each run waits for the spawned workers' first batch
+    step_ms = np.array(first['step_s'][1:] + second['step_s'][1:]) * 1e3
+    wait_ms = np.array(first['loader_wait_s'][1:] + second['loader_wait_s'][1:]) * 1e3
+    q1, med, q3 = (float(x) for x in np.percentile(step_ms, [25, 50, 75]))
+    rec = {'steps': len(steps), 'resumed_from_step': resumed['step'],
+           'resume_bit_for_bit': True, 'checkpoints_left': names,
+           'step_ms': {'median': med, 'q1': q1, 'q3': q3, 'all': step_ms.tolist()},
+           'loader_wait_ms': {'mean': float(wait_ms.mean()), 'median': float(np.median(wait_ms)),
+                              'max': float(wait_ms.max())},
+           'first_step_s': [first['step_s'][0], second['step_s'][0]],
+           'run_wall_s': [first['wall_s'], second['wall_s']],
+           'launches': [first['launches'], second['launches']],
+           'loss': [s['loss'] for s in steps]}
+    for row in rows:
+        row['kitti_train_launches'] = first['launches'][row['name']] + \
+            second['launches'][row['name']]
+    log(f'# kitti_train: 16 + 16 steps at batch {KITTI_TRAIN_BATCH} across a restart '
+        f'(resumed at step {resumed["step"]}, bit for bit; checkpoints left {names}); '
+        f'step through the runner {med:.2f} ms median ({q1:.2f}-{q3:.2f}, loader wait '
+        f'included), loader wait {wait_ms.mean():.2f} ms a step (median '
+        f'{np.median(wait_ms):.2f}, max {wait_ms.max():.2f}); first steps '
+        f'{[round(x, 2) for x in rec["first_step_s"]]} s; launches {rec["launches"]}')
+    log(f'# kitti_train loss per step: {[round(x, 3) for x in rec["loss"]]}')
+    train_set = test_runner.make_dataset(cfg, training=True, logger=quiet_logger())
+    rec['host_s_per_batch'] = host_batch_seconds(train_set, 3)
+    hs = rec['host_s_per_batch']
+    log(f'# kitti_train host seconds a batch of {KITTI_TRAIN_BATCH} in one process: '
+        f'{hs["cpp"]:.3f} with the C++ rulebook builder, {hs["numpy"]:.3f} with the '
+        f'numpy one; rulebook overflow counters {hs["overflow"]}')
+    return rec
+
+
 T_START = time.perf_counter()
 
 
@@ -1437,6 +1833,7 @@ def main():
     if not (REPO / 'fv2p_torch').is_dir() or not CFG.exists() or not MGAF_CFG.exists():
         log('chip_smoke.py must run from a checkout of the repository')
         return 2
+    check_kitti_fixture()
     sys.path.insert(0, str(REPO))
     from fv2p_torch.datasets import dataset_meta_from_cfg
     from fv2p_torch.models.roi_heads.iouguided_roi_head import proposal_layer
@@ -1701,12 +2098,31 @@ def main():
     train_kernel_rows(train_calls, trec['launches'], rows)
     del train_calls
 
+    # 9b'. the runners on the KITTI fixture (data/kitti): eval_one_epoch over
+    # the val scans at the test cap for FV2P and MGAF, the evaluator on the
+    # val gt, and the train runner across a restart
+    krec = {}
+    (krec['eval'], kmodel, kfirst, kfirst_np, ktest_set, kannos,
+     kret) = kitti_eval_phase(kernels, rows, cfg, 'kitti_eval',
+                              ('rotated_iou', 'fps', 'three_nn', 'sa_group'))
+    krec['eval']['f32_kernel_vs_plain'] = kitti_eval_f32(kernels, cfg, ktest_set, kfirst,
+                                                         kfirst_np)
+    krec['mgaf_eval'], kmgaf, kmfirst, *_ = kitti_eval_phase(
+        kernels, rows, mcfg, 'mgaf_kitti_eval', ('rotated_iou',), calibrate=True)
+    krec['evaluator'] = kitti_evaluator_phase(ktest_set, kannos, kret)
+    krec['train'] = kitti_train_phase(kernels, rows, cfg)
+
     # 9c. MGAF training
     mtrec = mgaf_train_phase(kernels, mcfg, meta, rows)
 
     # 10. under the profiler and the sync debug mode, after every timed pass
     record.update(profile_stats(model, batch, 'fv2p'))
     mrec.update(profile_stats(mgaf, batch, 'mgaf'))
+    for key, m, first in (('eval', kmodel, kfirst), ('mgaf_eval', kmgaf, kmfirst)):
+        prof = krec[key]['profile'] = profiled(lambda: forward(m, first))
+        log(f'# {key} on data/kitti: device busy {prof["device_busy_ms"]:.2f} ms of a '
+            f'profiled batch of {KITTI_BATCH} ({prof["wall_ms"]:.2f} ms, '
+            f'{prof["busy_share"]:.1%})')
     trec['host_syncs'], trec['host_sync_sites'] = host_syncs(lambda: step.step(train_batch))
     trec['profile'] = profiled(lambda: step.step(train_batch))
     log(f'# train step: device busy {trec["profile"]["busy_share"]:.1%} of a profiled '
@@ -1729,6 +2145,7 @@ def main():
         f'B1 on MGAF\'s calls {mrec["b1"]["device_ms"]:.4f}')
     record.update(launches=launches, kernels=rows, nvidia_smi=smi,
                   valid_detections=n_valid, mgaf=mrec, train=trec, mgaf_train=mtrec,
+                  kitti=krec,
                   wall_s=time.perf_counter() - T_START)
     log(f'# chip_smoke.py wall time {record["wall_s"]:.1f} s')
 

@@ -3,8 +3,10 @@
 The port's own copy of the reference config surface (``pcdet/config.py``):
 ``cfg_from_yaml_file(path, cfg)`` loads a yaml into an attribute dict,
 honouring a single-level ``_BASE_CONFIG_`` include resolved against the
-repository's ``tools/`` directory.
+repository's ``tools/`` directory; ``cfg_from_list`` applies the runners'
+``--set KEY VALUE`` pairs.
 """
+from ast import literal_eval
 from pathlib import Path
 
 import yaml
@@ -72,3 +74,45 @@ def cfg_from_yaml_file(cfg_file, config):
     with open(cfg_file, 'r') as f:
         merge_new_config(config=config, new_config=yaml.safe_load(f))
     return config
+
+
+def log_config_to_file(cfg_, pre='cfg', logger=None):
+    for key, val in cfg_.items():
+        if isinstance(val, EasyDict):
+            logger.info('----------- %s -----------' % key)
+            log_config_to_file(val, pre=pre + '.' + key, logger=logger)
+            continue
+        logger.info('%s.%s: %s' % (pre, key, val))
+
+
+def cfg_from_list(cfg_list, config):
+    """Set config keys via list (e.g., from command line) with type coercion.
+
+    Values are parsed with ``literal_eval`` when possible and coerced to the
+    type of the existing value; missing intermediate keys are created.
+    """
+    if len(cfg_list) % 2:
+        raise ValueError(f'--set takes KEY VALUE pairs, got {cfg_list}')
+    for k, v in zip(cfg_list[0::2], cfg_list[1::2]):
+        key_list = k.split('.')
+        d = config
+        for subkey in key_list[:-1]:
+            if subkey not in d:
+                d[subkey] = EasyDict()
+            d = d[subkey]
+        subkey = key_list[-1]
+        try:
+            value = literal_eval(v)
+        except (ValueError, SyntaxError):
+            value = v
+
+        if subkey in d and isinstance(d[subkey], type(value)) is False and d[subkey] is not None:
+            if isinstance(d[subkey], list) and isinstance(value, str):
+                # e.g. --set KEY "a,b,c"
+                value = value.split(',')
+            elif not isinstance(value, type(d[subkey])):
+                try:
+                    value = type(d[subkey])(value)
+                except (TypeError, ValueError):
+                    pass
+        d[subkey] = value

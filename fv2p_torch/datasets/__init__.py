@@ -1,5 +1,11 @@
-"""Dataset package. Exposes the meta derivation used by model building."""
+"""Dataset package: the meta derivation used by model building and the
+dataset dispatch, the loader and the batch conversions around it."""
+import functools
+import time
+
 import numpy as np
+import torch
+import torch.utils.data
 
 
 def dataset_meta_from_cfg(data_cfg, split='train'):
@@ -29,3 +35,81 @@ def dataset_meta_from_cfg(data_cfg, split='train'):
         'voxel_capacity': int(voxel_caps[split]),
         'max_points_per_voxel': max_ppv,
     }
+
+
+def build_dataset(data_cfg, class_names, root_path=None, training=True,
+                  logger=None):
+    """The dataset named by DATA_CONFIG.DATASET. Only KITTI is ported."""
+    name = data_cfg.get('DATASET', 'KittiDataset')
+    if name == 'KittiDataset':
+        from .kitti.kitti_dataset import KittiDataset
+        return KittiDataset(dataset_cfg=data_cfg, class_names=class_names,
+                            root_path=root_path, training=training,
+                            logger=logger)
+    if name in ('WaymoDataset', 'NuScenesDataset'):
+        raise NotImplementedError(
+            f'{name} is not in fv2p_torch yet (ROADMAP.md, queue A)')
+    raise KeyError(f'unknown dataset: {name}')
+
+
+def collate_to_tensors(collate, batch_list):
+    """``collate(batch_list)`` with its numeric arrays as tensors (the same
+    memory): a loader worker hands tensors to the main process through
+    shared memory, where numpy arrays would be pickled through a pipe."""
+    def conv(v):
+        if isinstance(v, np.ndarray) and v.dtype.kind in 'biuf':
+            return torch.from_numpy(v)
+        if isinstance(v, dict):
+            return {k: conv(x) for k, x in v.items()}
+        return v
+    return {k: conv(v) for k, v in collate(batch_list).items()}
+
+
+def batch_to_numpy(batch):
+    """A loader's batch with its tensors as numpy arrays (the same memory)."""
+    def conv(v):
+        if torch.is_tensor(v):
+            return v.numpy()
+        if isinstance(v, dict):
+            return {k: conv(x) for k, x in v.items()}
+        return v
+    return {k: conv(v) for k, v in batch.items()}
+
+
+def build_dataloader(dataset, batch_size, workers, training, pin_memory=False):
+    """A DataLoader over ``dataset`` (shuffled, last partial batch dropped
+    when training) whose batches hold tensors (``collate_to_tensors``),
+    copied into pinned memory when ``pin_memory``. Workers are spawned, not
+    forked (the main process holds a CUDA context, which a forked child
+    cannot use), persist across epochs and seed their dataset copy's
+    generator from torch's worker seed."""
+    from .dataset import worker_init_fn
+    return torch.utils.data.DataLoader(
+        dataset, batch_size=batch_size, num_workers=workers, shuffle=training,
+        collate_fn=functools.partial(collate_to_tensors, dataset.collate_batch),
+        drop_last=training, pin_memory=pin_memory,
+        worker_init_fn=worker_init_fn if workers > 0 else None,
+        persistent_workers=workers > 0,
+        multiprocessing_context='spawn' if workers > 0 else None)
+
+
+def prefetch(loader, convert):
+    """Iterate ``loader`` one batch ahead: the next batch is taken from the
+    loader and ``convert``-ed (its copies to the card queued) before the
+    current one is handed out. Yields (numpy batch, converted batch,
+    seconds the loader made the caller wait for it)."""
+    it = iter(loader)
+    pending = None
+    while True:
+        t0 = time.perf_counter()
+        try:
+            batch_np = next(it)
+        except StopIteration:
+            break
+        wait = time.perf_counter() - t0
+        item = (batch_np, convert(batch_np), wait)
+        if pending is not None:
+            yield pending
+        pending = item
+    if pending is not None:
+        yield pending

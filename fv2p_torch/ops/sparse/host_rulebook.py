@@ -1,17 +1,30 @@
-"""Host-side (numpy) rulebook construction for the sparse backbone.
+"""Host-side rulebook construction for the sparse backbone.
 
 The rulebook is integer bookkeeping that depends only on voxel coordinates.
-This module builds all gather tables of a backbone's topology per sample with
-numpy's ``searchsorted``/``unique``; ``collate_rulebooks`` stacks the
-per-sample tables into the batch layout (per-sample row blocks, one shared
-zero-pad row at the end, added by the backbone).
+``build_sample_rulebooks`` builds all gather tables of a backbone's topology
+for one sample in C++ (``native_rulebook.cpp``, built by g++ at first use;
+a failed build raises). ``build_sample_rulebooks_plain`` is the numpy
+version of the same function (``searchsorted``/``unique``), the reference
+the C++ one is held to. ``collate_rulebooks`` stacks the per-sample tables
+into the batch layout (per-sample row blocks, one shared zero-pad row at
+the end, added by the backbone).
 
 Row convention per level L with capacity C_L: sample b's voxels occupy rows
 [b*C_L, b*C_L + n_b); the global zero row is B*C_L (gather sentinel).
 """
+import ctypes
 import itertools
+from pathlib import Path
 
 import numpy as np
+
+from ...utils import native
+
+NATIVE_SRC = Path(__file__).resolve().parent / 'native_rulebook.cpp'
+_I32P, _U8P = ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_uint8)
+_NATIVE_SIGNATURES = {'build_rulebooks': (
+    (_I32P, ctypes.c_int32, _I32P, ctypes.c_int32, _I32P, _I32P, _U8P,
+     _I32P, _I32P, _I32P, _I32P, _I32P, _I32P), None)}
 
 
 def _as3(v):
@@ -170,7 +183,62 @@ def _down_tables(coords, n_valid, shape, kernel, stride, padding, out_cap):
 
 
 def build_sample_rulebooks(voxel_coords_zyx, n_valid, spec):
-    """All backbone tables for ONE sample.
+    """All backbone tables for ONE sample, built by the C++ library; the
+    arguments and the result are those of ``build_sample_rulebooks_plain``."""
+    caps_d, levels, downs = spec['caps'], spec['levels'], spec['downs']
+    if not 0 <= n_valid <= min(caps_d['x_conv1'], len(voxel_coords_zyx)):
+        raise ValueError(f'{n_valid} valid voxels for a level capacity of '
+                         f'{caps_d["x_conv1"]} and {len(voxel_coords_zyx)} rows')
+    lib = native.load(NATIVE_SRC, _NATIVE_SIGNATURES)
+    shape1 = spec['shapes']['x_conv1']
+    caps = np.array([caps_d[lvl] for lvl in levels], np.int32)
+    subm_flags = np.array([lvl in spec['subm_levels'] for lvl in levels], np.uint8)
+    params = np.array([list(_as3(k)) + list(_as3(s)) + list(_as3(p))
+                       for _, _, k, s, p in downs], np.int32)
+    kvols = [int(np.prod(_as3(k))) for _, _, k, _, _ in downs]
+    coords = np.ascontiguousarray(voxel_coords_zyx[:n_valid], dtype=np.int32)
+    subm_buf = np.empty(sum(27 * caps_d[lvl] for lvl in spec['subm_levels']), np.int32)
+    down_buf = np.empty(sum(kv * caps_d[d[1]] for kv, d in zip(kvols, downs)), np.int32)
+    inv_buf = np.empty(sum(kv * caps_d[d[0]] for kv, d in zip(kvols, downs)), np.int32)
+    coords_buf = np.empty(sum(3 * caps_d[d[1]] for d in downs), np.int32)
+    nvalid_buf = np.empty(len(levels), np.int32)
+    ntotal_buf = np.empty(len(levels), np.int32)
+    shape_arr = np.array(shape1, np.int32)
+
+    def ptr(a, kind=_I32P):
+        return a.ctypes.data_as(kind)
+    lib.build_rulebooks(ptr(coords), int(n_valid), ptr(shape_arr), len(downs),
+                        ptr(params), ptr(caps), ptr(subm_flags, _U8P), ptr(subm_buf),
+                        ptr(down_buf), ptr(inv_buf), ptr(coords_buf),
+                        ptr(nvalid_buf), ptr(ntotal_buf))
+
+    out = {'coords_x_conv1': _pad_coords(voxel_coords_zyx, caps_d['x_conv1']),
+           'nvalid_x_conv1': n_valid, 'ntotal_x_conv1': n_valid}
+    o = 0
+    for lvl in spec['subm_levels']:
+        out[f'subm_{lvl}'] = subm_buf[o:o + 27 * caps_d[lvl]].reshape(27, caps_d[lvl])
+        o += 27 * caps_d[lvl]
+    od = oi = oc = 0
+    level_shape = {'x_conv1': shape1}
+    for i, (src, dst, k, s, p) in enumerate(downs):
+        kv = kvols[i]
+        out[f'down_{src}->{dst}'] = down_buf[od:od + kv * caps_d[dst]].reshape(kv, caps_d[dst])
+        od += kv * caps_d[dst]
+        out[f'down_inv_{src}->{dst}'] = inv_buf[oi:oi + kv * caps_d[src]].reshape(
+            kv, caps_d[src])
+        oi += kv * caps_d[src]
+        out[f'coords_{dst}'] = coords_buf[oc:oc + 3 * caps_d[dst]].reshape(caps_d[dst], 3)
+        oc += 3 * caps_d[dst]
+        out[f'nvalid_{dst}'] = int(nvalid_buf[i + 1])
+        out[f'ntotal_{dst}'] = int(ntotal_buf[i + 1])
+        level_shape[dst] = _out_shape(level_shape[src], k, s, p)
+    out['shapes'] = level_shape
+    _check_strict(out, spec)
+    return out
+
+
+def build_sample_rulebooks_plain(voxel_coords_zyx, n_valid, spec):
+    """All backbone tables for ONE sample, in numpy.
 
     Args:
         voxel_coords_zyx: (cap1, 3) int32; the first n_valid rows are valid
@@ -265,6 +333,39 @@ def sort_voxels_by_key(voxel_coords_zyx, shape_zyx):
     keys = ((voxel_coords_zyx[:, 1].astype(np.int64) * w
              + voxel_coords_zyx[:, 2]) * d + voxel_coords_zyx[:, 0])
     return np.argsort(keys, kind='stable')
+
+
+# Per-level overflow accounting: samples_over[lvl] counts the samples whose
+# active count before truncation exceeded the level capacity, max_active[lvl]
+# the largest count seen, dropped[lvl] the rows cut. Per process: a loader
+# worker keeps its own.
+_OVERFLOW_STATS = {'samples': 0, 'samples_over': {}, 'max_active': {},
+                   'dropped': {}}
+
+
+def reset_overflow_stats():
+    _OVERFLOW_STATS.update(samples=0, samples_over={}, max_active={},
+                           dropped={})
+
+
+def get_overflow_stats():
+    """Snapshot of the counters since the last reset (plain dict)."""
+    return {'samples': _OVERFLOW_STATS['samples'],
+            'samples_over': dict(_OVERFLOW_STATS['samples_over']),
+            'max_active': dict(_OVERFLOW_STATS['max_active']),
+            'dropped': dict(_OVERFLOW_STATS['dropped'])}
+
+
+def _record_overflow(sample_out, spec):
+    st = _OVERFLOW_STATS
+    st['samples'] += 1
+    for lvl in spec['levels']:
+        tot = int(sample_out[f'ntotal_{lvl}'])
+        cap = spec['caps'][lvl]
+        st['max_active'][lvl] = max(st['max_active'].get(lvl, 0), tot)
+        if tot > cap:
+            st['samples_over'][lvl] = st['samples_over'].get(lvl, 0) + 1
+            st['dropped'][lvl] = st['dropped'].get(lvl, 0) + (tot - cap)
 
 
 def prepare_batch_rulebooks(batch_np, backbone_name, grid_size,

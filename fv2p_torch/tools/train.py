@@ -1,0 +1,186 @@
+"""Training entry point (counterpart of ``tools/train.py``): the epoch loop
+over ``train_utils.train_state.TrainStep`` and ``adam_onecycle``, a
+checkpoint every ``--ckpt_save_interval`` epochs with rotation to
+``--max_ckpt_save_num``, auto-resume from the newest checkpoint, and
+``--eval_after_train``.
+
+    python -m fv2p_torch.tools.train --cfg_file tools/cfgs/kitti_models/FV2P/fv2p.yaml
+
+Checkpoints are ``torch.save`` files ``<output_dir>/ckpt/checkpoint_epoch_<n>.pth``
+holding the model's ``state_dict``, the optimizer's state (the one-cycle
+step and the Adam moments) and the epoch; each is written under a temporary
+name and renamed into place. ``<output_dir>/metrics.jsonl`` gets every
+step's loss terms. The output directory is
+``output/torch/<group>/<tag>/<extra_tag>`` unless ``--output_dir`` names one.
+"""
+import argparse
+import datetime
+import json
+import os
+import time
+
+import numpy as np
+import torch
+
+from ..config import log_config_to_file
+from ..datasets import build_dataloader, prefetch
+from ..ops.sparse import host_rulebook
+from ..train_utils.train_state import TrainStep
+from ..utils import common_utils
+from ..utils.synthetic import batch_to_torch
+from . import test as test_runner
+from .eval_utils import eval_one_epoch
+
+FIXED_SEED = 666
+LOG_INTERVAL = 50                 # steps between loss lines in the log
+
+
+def parse_config(argv=None):
+    parser = argparse.ArgumentParser(
+        description=__doc__.split('\n\n')[0],
+        epilog=test_runner.NOT_PORTED + ' --max_rss_gb (a workaround for a '
+        'remote-TPU client) has no counterpart; --profile_steps (a '
+        'torch.profiler trace) is not ported yet.')
+    test_runner.add_common_args(parser)
+    parser.add_argument('--epochs', type=int, default=None)
+    parser.add_argument('--max_ckpt_save_num', type=int, default=30)
+    parser.add_argument('--ckpt_save_interval', type=int, default=1,
+                        help='save a checkpoint every N epochs (and after the last)')
+    parser.add_argument('--eval_after_train', action='store_true', default=False,
+                        help='evaluate the last --num_epochs_to_eval checkpoints')
+    parser.add_argument('--num_epochs_to_eval', type=int, default=10)
+    parser.add_argument('--fix_random_seed', action='store_true', default=False,
+                        help=f'seed python, numpy, torch and the dataset with {FIXED_SEED}')
+    args = parser.parse_args(argv)
+    return args, test_runner.load_config(args)
+
+
+def save_checkpoint(trainer, epoch, ckpt_dir):
+    """checkpoint_epoch_<epoch>.pth, written to a temporary name first."""
+    path = ckpt_dir / f'checkpoint_epoch_{epoch}.pth'
+    tmp = ckpt_dir / f'{path.name}.{os.getpid()}.tmp'
+    torch.save({'epoch': epoch, 'model_state': trainer.model.state_dict(),
+                'optimizer_state': trainer.optimizer.state_dict()}, tmp)
+    os.replace(tmp, path)
+    return path
+
+
+def load_checkpoint(trainer, path):
+    """Restore the model and the optimizer in place; returns the epoch."""
+    ckpt = test_runner.load_model_state(trainer.model, path)
+    trainer.optimizer.load_state_dict(ckpt['optimizer_state'])
+    return int(ckpt['epoch'])
+
+
+def rotate_checkpoints(ckpt_dir, keep):
+    """Delete all but the newest ``keep`` checkpoints."""
+    ckpts = test_runner.checkpoint_list(ckpt_dir)
+    for _, path in ckpts[:max(len(ckpts) - keep, 0)]:
+        path.unlink()
+
+
+def main(argv=None, on_resume=None):
+    """Train. ``on_resume(trainer, path)``, if given, is called right after
+    an auto-resume has restored ``path``. Returns a record: the trainer, the
+    checkpoint it resumed from, every step's loss terms (host floats), the
+    host seconds between step ends (the loader's waits included) and the
+    loader's wait per step, and the eval results of --eval_after_train."""
+    args, cfg = parse_config(argv)
+    if args.fix_random_seed:
+        common_utils.set_random_seed(FIXED_SEED)
+    batch_size = args.batch_size or cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU
+    epochs = args.epochs or cfg.OPTIMIZATION.NUM_EPOCHS
+
+    output_dir = test_runner.output_dir_of(cfg, args)
+    ckpt_dir = output_dir / 'ckpt'
+    ckpt_dir.mkdir(parents=True, exist_ok=True)
+    logger = common_utils.create_logger(
+        output_dir / ('log_train_%s.txt' % datetime.datetime.now().strftime('%Y%m%d-%H%M%S')))
+    logger.info('**********************Start logging**********************')
+    log_config_to_file(cfg, logger=logger)
+
+    train_set = test_runner.make_dataset(cfg, training=True, logger=logger)
+    if args.fix_random_seed:
+        train_set.rng = np.random.RandomState(FIXED_SEED)
+    loader = build_dataloader(train_set, batch_size, args.workers, training=True,
+                              pin_memory=args.device == 'cuda')
+    steps_per_epoch = len(loader)
+    model = test_runner.make_model(cfg, args, 'train')
+    trainer = TrainStep(model, cfg.OPTIMIZATION, steps_per_epoch * epochs)
+    device = trainer.device
+    logger.info('model: %d parameters' % sum(p.numel() for p in model.parameters()))
+
+    start_epoch, resumed_from = 0, None
+    ckpts = test_runner.checkpoint_list(ckpt_dir)
+    if ckpts:
+        resumed_from = ckpts[-1][1]
+        start_epoch = load_checkpoint(trainer, resumed_from)
+        logger.info(f'auto-resumed from {resumed_from} (epoch {start_epoch}, '
+                    f'step {trainer.step_count})')
+        if on_resume is not None:
+            on_resume(trainer, resumed_from)
+
+    logger.info(f'start training: epochs {start_epoch}..{epochs} x {steps_per_epoch} '
+                f'steps, batch {batch_size}, on {device}')
+    record = {'trainer': trainer, 'resumed_from': resumed_from, 'start_epoch': start_epoch,
+              'steps': [], 'step_s': [], 'loader_wait_s': [], 'checkpoints': []}
+    with open(output_dir / 'metrics.jsonl', 'a') as metrics_file:
+        for epoch in range(start_epoch, epochs):
+            terms = []
+            t_prev = time.perf_counter()
+            for _, batch, wait in prefetch(loader, lambda b: batch_to_torch(b, device)):
+                terms.append(trainer.step(batch))
+                now = time.perf_counter()
+                record['step_s'].append(now - t_prev)
+                record['loader_wait_s'].append(wait)
+                t_prev = now
+            # one read of the epoch's loss terms from the device
+            names = sorted(terms[0])
+            table = torch.stack([torch.stack([m[k].float() for k in names])
+                                 for m in terms]).cpu().numpy()
+            for i, row in enumerate(table):
+                line = dict(zip(names, (float(x) for x in row)),
+                            epoch=epoch, it=epoch * steps_per_epoch + i + 1)
+                record['steps'].append(line)
+                metrics_file.write(json.dumps(line) + '\n')
+                if line['it'] % LOG_INTERVAL == 0:
+                    logger.info('epoch %d it %d loss %.4f grad_norm %.2f'
+                                % (epoch, line['it'], line['loss'], line['grad_norm']))
+            metrics_file.flush()
+            logger.info('epoch %d: mean loss %.4f' % (epoch + 1, table[:, names.index('loss')].mean()))
+            if (epoch + 1) % args.ckpt_save_interval == 0 or epoch + 1 == epochs:
+                record['checkpoints'].append(save_checkpoint(trainer, epoch + 1, ckpt_dir))
+                rotate_checkpoints(ckpt_dir, args.max_ckpt_save_num)
+                logger.info(f'saved checkpoint epoch {epoch + 1}')
+            of = host_rulebook.get_overflow_stats()
+            if of['samples_over']:
+                logger.warning('rulebook capacity overflow: %s' % of)
+            host_rulebook.reset_overflow_stats()
+    logger.info('**********************End training**********************')
+
+    if args.eval_after_train:
+        record['eval'] = evaluate_checkpoints(cfg, args, output_dir, batch_size, logger)
+    return record
+
+
+def evaluate_checkpoints(cfg, args, output_dir, batch_size, logger):
+    """eval_one_epoch of the newest --num_epochs_to_eval checkpoints;
+    returns {epoch: result dict}."""
+    eval_dir = output_dir / 'eval' / 'eval_with_train'
+    test_set = test_runner.make_dataset(cfg, training=False, logger=logger)
+    loader = build_dataloader(test_set, batch_size, args.workers, training=False,
+                              pin_memory=args.device == 'cuda')
+    model = test_runner.make_model(cfg, args, 'test')
+    results = {}
+    for epoch, path in test_runner.checkpoint_list(output_dir / 'ckpt')[-args.num_epochs_to_eval:]:
+        test_runner.load_model_state(model, path)
+        cur_dir = eval_dir / ('epoch_%d' % epoch)
+        cur_dir.mkdir(parents=True, exist_ok=True)
+        logger.info(f'--- eval_with_train: epoch {epoch} ---')
+        results[epoch], _ = eval_one_epoch(cfg, model, loader, test_set, cur_dir, logger,
+                                           batch_size)
+    return results
+
+
+if __name__ == '__main__':
+    main()

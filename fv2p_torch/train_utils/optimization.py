@@ -76,6 +76,20 @@ class AdamOneCycle:
                 one_cycle_mom(self.count, self.moms, self.pct_start,
                               self.total_steps))
 
+    def state_dict(self):
+        """The one-cycle step and the moments (the tensors themselves)."""
+        return {'count': self.count, 'mu': self.mu, 'nu': self.nu}
+
+    @torch.no_grad()
+    def load_state_dict(self, state):
+        """Restore a ``state_dict``: the moments are copied into the
+        optimizer's own tensors."""
+        if len(state['mu']) != len(self.mu) or len(state['nu']) != len(self.nu):
+            raise ValueError('optimizer state of another model')
+        self.count = int(state['count'])
+        torch._foreach_copy_(self.mu, list(state['mu']))
+        torch._foreach_copy_(self.nu, list(state['nu']))
+
     def zero_grad(self):
         for p in self.params:
             p.grad = None

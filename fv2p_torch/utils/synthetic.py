@@ -103,10 +103,28 @@ def synthetic_batch_np(meta, batch_size, n_cap, n_fill, n_points, seed=0,
     return batch
 
 
+def _is_array(v):
+    return torch.is_tensor(v) or (isinstance(v, np.ndarray) and v.dtype.kind in 'biuf')
+
+
 def batch_to_torch(batch_np, device):
-    """numpy batch dict (one nesting level for ``rulebooks``) -> tensors."""
+    """A batch dict of numpy arrays or tensors (one nesting level for
+    ``rulebooks``) -> tensors on ``device``. What is neither (``calib``,
+    ``frame_id``, ...) is left out. To a CUDA device the arrays go through
+    pinned memory (pinned here unless they are already) with non-blocking
+    copies, so the copy overlaps what the card is running."""
+    device = torch.device(device)
+    pin = device.type == 'cuda'
+
     def conv(v):
-        return torch.from_numpy(np.ascontiguousarray(v)).to(device)
-    return {k: ({kk: conv(vv) for kk, vv in v.items()} if isinstance(v, dict)
-                else conv(v))
-            for k, v in batch_np.items()}
+        t = v if torch.is_tensor(v) else torch.from_numpy(np.ascontiguousarray(v))
+        if pin:
+            return (t if t.is_pinned() else t.pin_memory()).to(device, non_blocking=True)
+        return t.to(device)
+    out = {}
+    for k, v in batch_np.items():
+        if isinstance(v, dict):
+            out[k] = {kk: conv(vv) for kk, vv in v.items() if _is_array(vv)}
+        elif _is_array(v):
+            out[k] = conv(v)
+    return out

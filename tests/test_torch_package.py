@@ -46,10 +46,35 @@ def _imported_roots(path):
 
 @pytest.mark.parametrize('path', sorted(
     [p.relative_to(REPO) for p in (REPO / 'fv2p_torch').rglob('*.py')]
-    + [Path('chip_smoke.py'), Path('tools/torch_kernel_variants.py')]), ids=str)
+    + [Path('chip_smoke.py'), Path('tools/torch_kernel_variants.py'),
+       Path('tools/torch_gate_probe.py')]), ids=str)
 def test_port_imports_no_jax(path):
     bad = sorted({m for m in _imported_roots(REPO / path) if m in FORBIDDEN})
     assert not bad, f'{path} imports {bad}'
+
+
+def _cdll_calls(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    return [n for n in ast.walk(tree) if isinstance(n, ast.Call)
+            and isinstance(n.func, ast.Attribute) and n.func.attr == 'CDLL']
+
+
+def test_port_loads_only_its_own_libraries():
+    """Shared libraries are loaded in two places only, each building its
+    library from a source of the port into build/ at the repository root:
+    nothing of fv2p_tpu's (its .so files included) is loaded."""
+    from fv2p_torch.datasets.kitti.kitti_object_eval import eval as kitti_eval
+    from fv2p_torch.ops import cuda as kcuda
+    from fv2p_torch.ops.sparse import host_rulebook
+    from fv2p_torch.utils import native
+    loaders = sorted(str(p.relative_to(REPO)) for p in (REPO / 'fv2p_torch').rglob('*.py')
+                     if _cdll_calls(p))
+    assert loaders == ['fv2p_torch/ops/cuda/__init__.py', 'fv2p_torch/utils/native.py']
+    for src in (host_rulebook.NATIVE_SRC, kitti_eval.NATIVE_SRC):
+        assert src.is_relative_to(REPO / 'fv2p_torch')
+        assert native.library_path(src).is_relative_to(REPO / 'build')
+    for name in kcuda.KERNELS:
+        assert kcuda.library_path(name).is_relative_to(REPO / 'build')
 
 
 def test_build_network_without_device_needs_cuda(monkeypatch):

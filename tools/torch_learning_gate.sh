@@ -1,0 +1,39 @@
+#!/usr/bin/env bash
+# The FV2P learning gate through the PyTorch port's runners, on one CUDA card:
+# train tools/cfgs/kitti_models/FV2P/fv2p_overfit.yaml on the committed KITTI
+# fixture (data/kitti, 32 train scans; 200 epochs of 16 steps, a checkpoint
+# every 25), then score the checkpoints of epochs 175 and 200 on the 24 val
+# scans with the official KITTI AP.
+#
+#     bash tools/torch_learning_gate.sh [EPOCHS_TO_SCORE...]
+#
+# Checkpoints stay under output/torch/kitti_models/FV2P/fv2p_overfit/gate/;
+# the loss of every step (metrics.jsonl), the eval results (result.json per
+# checkpoint) and the card's name and power limit go to chiprun_out/gate/.
+# A strict level-capacity overflow on an augmented scan stops a train run;
+# the script then starts the runner again, which resumes from the newest
+# checkpoint (at most 3 starts).
+set -euo pipefail
+cd "$(dirname "$0")/.."
+CFG=tools/cfgs/kitti_models/FV2P/fv2p_overfit.yaml
+RUN=output/torch/kitti_models/FV2P/fv2p_overfit/gate
+OUT=chiprun_out/gate
+EPOCHS="${*:-175 200}"
+mkdir -p "$OUT"
+nvidia-smi --query-gpu=name,power.limit --format=csv,noheader | tee "$OUT/card.txt"
+for attempt in 1 2 3; do
+  if python3 -m fv2p_torch.tools.train --cfg_file "$CFG" --extra_tag gate \
+      --ckpt_save_interval 25 --workers 4 --fix_random_seed \
+      >> "$OUT/train_log.txt" 2>&1; then
+    break
+  fi
+  echo "train run $attempt stopped: $(grep -E 'Error' "$OUT/train_log.txt" | tail -1)"
+done
+grep -E 'mean loss|saved checkpoint|resumed' "$OUT/train_log.txt" | tail -12 || true
+cp "$RUN/metrics.jsonl" "$OUT/"
+for e in $EPOCHS; do
+  python3 -m fv2p_torch.tools.test --cfg_file "$CFG" --extra_tag gate --workers 4 \
+      --ckpt "$RUN/ckpt/checkpoint_epoch_$e.pth" --output_dir "$OUT/eval_$e" \
+      > "$OUT/eval_$e.log" 2>&1
+  grep -E 'recall_rcnn_0.3|sec_per_example|3d   AP' "$OUT/eval_$e.log" | head -6 || true
+done
