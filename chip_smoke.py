@@ -113,6 +113,56 @@ fails without it), between FV2P's training and MGAF's:
     host seconds a batch with the C++ and the numpy rulebook builders. Its
     checkpoints go to output/chip_smoke/.
 
+Then, after MGAF's training, the phases of device-built rulebooks and of
+SECOND and PointPillar:
+
+  * device_rulebooks: FV2P and MGAF-3DSSD on the bench batch as the loader
+    ships it with --rulebooks device (each scan's voxels shuffled, no
+    tables). Every level's rows per sample and the device tables, mapped
+    to per-sample rows, must equal the host builder's, with nothing
+    dropped; the f32 forward from the same weights must give the same
+    detections in both modes (keeps and labels identical; boxes and scores
+    within 1e-4 for FV2P, for MGAF within CONTROL_FACTOR times what a 1e-6
+    relative perturbation of its BEV map moves them in host mode alone,
+    since its DCNs swap neighbouring peaks within rounding); B3's batch-mixed calls (each sample's search over the
+    level four samples wide, the other samples' rows masked) are held to
+    the plain version and timed beside cdist + topk in query chunks
+    (`device_rulebooks_*` keys of the `kernels` line). The builder's time
+    a forward, its host waits under the sync debug mode (there must be
+    none), and later under the profiler the kernels it queues; the bf16
+    forwards of both models in device mode and their peak memory.
+  * second and pointpillar: kitti_models/second.yaml and pointpillar.yaml
+    at full width in bf16, batch 4, BatchNorm calibrated on the batch
+    (seeded weights put no anchor over SCORE_THRESH otherwise): SECOND on
+    the bench voxels (its backbone builds its rulebooks in the forward),
+    PointPillar on pillars of the same scans' raw points through the
+    port's voxel generator (40000-pillar test cap). Counted (B1 in the NMS,
+    no other kernel), B1's calls held to the plain version and timed
+    (`second_*`, `pointpillar_*` keys), the f32 forward through the
+    kernels against the plain versions, the forward's median, per-module
+    times, peak memory and host waits; then an f32 train step through the
+    kernels and through the plain versions (as FV2P's), and 2 + 10 bf16
+    steps at the yaml's batch 4 (adam_onecycle), every loss term finite and
+    the loss falling.
+  * kitti_eval_device: eval_one_epoch over data/kitti's val scans with
+    --rulebooks device, the kitti_eval model. The first run is counted as
+    kitti_eval's (every kernel launches), B3's batch-mixed calls at the
+    test cap and B1's calls held to the plain versions and timed
+    (`kitti_eval_device_*` keys); the second's AP dict must equal host
+    mode's, and one batch in f32 must give host mode's detections within
+    KITTI_F32_ATOL; the loader's wait and seconds a scan beside host mode's.
+  * kitti_second: fv2p_torch.tools.train for one epoch of second.yaml on
+    the 32 train scans (Car and Pedestrian: the fixture has no Cyclist;
+    fv2p.yaml's train level capacities, which second.yaml does not set:
+    its derived ones drop rows under gt sampling), then
+    fv2p_torch.tools.test on its checkpoint, each counted (training
+    launches no kernel; the test run B1 alone, its calls held to the plain
+    version, `kitti_second_*` keys); the step median and the loader's
+    wait.
+
+The earlier paths keep their repetitions: the whole script stays within
+half its time limit without a cut.
+
 Exits non-zero on any failure, and without a CUDA card. The second-to-last
 lines are a JSON ``kernels`` object (FV2P's path) and the nvidia-smi name and
 power limit; the last line is ``{"ok": true, "device": {...}}``. A fuller
@@ -158,6 +208,9 @@ B1_CULL_REL, B1_CULL_ABS, B1_MIN_EDGE_REL = 1e-3, 1e-5, 1e-4
 B4_REL, B4_FLOOR = 2.0 ** -7, 2.0 ** -3
 B3_DIST_TOL = 1e-6          # rtol and atol (m^2): both sides round alike
 F32_ATOL = 1e-4
+# MGAF's f32 detections, host against device tables: at most this many
+# times what a 1e-6 relative perturbation of the BEV map moves them
+CONTROL_FACTOR = 2.0
 FORWARD_REPS = 20
 MODULE_REPS = 3
 KEPT_ROWS = 100             # the kept buffer of the proposal NMS (post_max)
@@ -244,6 +297,10 @@ def patched(kernels, make):
     finally:
         for k, fn, orig in saved:
             setattr(k.module, fn, orig)
+
+
+def copy_kernels(kernels):
+    return [Kernel(k.name, k.module, k.entries, k.source, k.replaces) for k in kernels]
 
 
 def capturing(k, name, orig):
@@ -1127,7 +1184,7 @@ def captured_train_calls(kernels, step, batch, launched):
     """One more counted step with every kernel call recorded (the calls the
     train path makes, for the comparison with the plain versions)."""
     from fv2p_torch.ops import cuda as kcuda
-    train_k = [Kernel(k.name, k.module, k.entries, k.source, k.replaces) for k in kernels]
+    train_k = copy_kernels(kernels)
     with patched(train_k, capturing):
         _, launches, _ = counted_train_step(kcuda, step, batch, launched)
     sync()
@@ -1237,7 +1294,7 @@ def zero_by_construction(name):
     return name.startswith('backbone_3d.res') and '.conv' in name and name.endswith('.bias')
 
 
-def train_kernel_rows(train_calls, launches, rows, prefix='train'):
+def train_kernel_rows(train_calls, launches, rows, prefix='train', library=library_three_nn):
     """A path's calls of each kernel against the plain versions, and their
     times, added to each kernel's row of the `kernels` line under `prefix`_*
     keys (a kernel the path does not launch gets its count, 0)."""
@@ -1265,7 +1322,7 @@ def train_kernel_rows(train_calls, launches, rows, prefix='train'):
             row[f'{prefix}_shapes'] = [list(a[0].shape) + [a[2]] for _, a in k.calls]
         if k.name == 'three_nn':
             row[f'{prefix}_library_ms'] = time_events(
-                lambda: [library_three_nn(a) for a in k.calls], reps=3)
+                lambda: [library(a) for a in k.calls], reps=3)
         log(f'# {prefix} {k.name}: {launches[k.name]} launches, {len(k.calls)} calls '
             f'replayed, agree with the plain version (max abs error {err}); '
             f'{row[f"{prefix}_ms"]:.3f} ms kernel, '
@@ -1513,19 +1570,48 @@ def states_equal(a, b):
             and all(torch.equal(x, y) for x, y in zip(a[2] + a[3], b[2] + b[3])))
 
 
+def counted_eval(kernels, rows, cfg, model, loader, test_set, out_dir, label, launched,
+                 n_batches, library=library_three_nn):
+    """One ``eval_one_epoch`` with the counts set to 0 just before and read
+    just after, every kernel call captured; each kernel in `launched` must
+    launch, no other. B1's calls (NMS, the recall counter, the evaluator)
+    and the first batch's calls of the other kernels are held against the
+    plain versions and timed (the `label`_* keys of `rows`). Returns (the
+    result dict, the launches, B1's calls by entry point)."""
+    from fv2p_torch.ops import cuda as kcuda
+    from fv2p_torch.tools import eval_utils
+    cap = copy_kernels(kernels)
+    kcuda.reset_launch_counts()
+    with patched(cap, capturing):
+        ret, _ = eval_utils.eval_one_epoch(cfg, model, loader, test_set, out_dir,
+                                           quiet_logger(), KITTI_BATCH)
+    sync()
+    launches = dict(kcuda.launch_counts)
+    for name, n in launches.items():
+        if (name in launched) != (n > 0):
+            fail(f'{label}: kernel {name} launched {n} times over the val set; '
+                 f'the path launches {sorted(launched)}')
+    for k in cap:
+        if launches[k.name] != len(k.calls):
+            fail(f'{label} {k.name}: {launches[k.name]} launches, {len(k.calls)} calls')
+        if k.name != 'rotated_iou':
+            k.calls = k.calls[:launches[k.name] // n_batches]
+    b1 = next(k for k in cap if k.name == 'rotated_iou')
+    b1_calls = {fn: sum(1 for c in b1.calls if c[0] == fn) for fn in b1.entries}
+    log(f'# {label}: launches over {n_batches} batches {launches} (B1 with the recall '
+        f'counter and the evaluator: {b1_calls})')
+    train_kernel_rows({k.name: k for k in cap}, launches, rows, prefix=label, library=library)
+    return ret, launches, b1_calls
+
+
 def kitti_eval_phase(kernels, rows, cfg, label, launched, calibrate=False):
     """``eval_one_epoch`` over the 24 val scans of data/kitti at the test cap
     (batch 4, 4 spawned loader workers, bf16, seeded weights; with
     `calibrate` the BatchNorm statistics are set on the first batch, as
-    MGAF needs). The first run is counted (each kernel in `launched` must
-    launch, no other) and every kernel call captured: B1's calls (NMS, the
-    recall counter, the evaluator) and the first batch's calls of the other
-    kernels are held against the plain versions and timed (the
-    `<label>_*` keys of `rows`). The second run gives the times, recall and
-    AP. Returns (record, model, first batch on the card, dataset, det_annos,
+    MGAF needs). The first run is ``counted_eval``'s, with `launched`;
+    the second gives the times, recall and AP. Returns (record, model, first batch on the card, dataset, det_annos,
     AP dict)."""
     from fv2p_torch.datasets import batch_to_numpy, build_dataloader, dataset_meta_from_cfg
-    from fv2p_torch.ops import cuda as kcuda
     from fv2p_torch.tools import eval_utils
     from fv2p_torch.tools import test as test_runner
     from fv2p_torch.utils.synthetic import batch_to_torch
@@ -1550,32 +1636,9 @@ def kitti_eval_phase(kernels, rows, cfg, label, launched, calibrate=False):
     out_dir = REPO / 'output' / 'chip_smoke' / label
     out_dir.mkdir(parents=True, exist_ok=True)
 
-    cap = [Kernel(k.name, k.module, k.entries, k.source, k.replaces) for k in kernels]
-    kcuda.reset_launch_counts()
-    with patched(cap, capturing):
-        ret_a, _ = eval_utils.eval_one_epoch(cfg, model, loader, test_set, out_dir, logger,
-                                             KITTI_BATCH)
-    sync()
-    launches = dict(kcuda.launch_counts)
-    for name, n in launches.items():
-        if (name in launched) != (n > 0):
-            fail(f'{label}: kernel {name} launched {n} times over the val set; '
-                 f'the path launches {sorted(launched)}')
-    n_batches = len(batches)
-    for k in cap:
-        if launches[k.name] != len(k.calls):
-            fail(f'{label} {k.name}: {launches[k.name]} launches, {len(k.calls)} calls')
-        if k.name != 'rotated_iou':
-            k.calls = k.calls[:launches[k.name] // n_batches]
-    b1 = next(k for k in cap if k.name == 'rotated_iou')
-    rec['launches'] = launches
-    rec['launches_per_batch'] = {n: v / n_batches for n, v in launches.items()}
-    rec['b1_calls'] = {fn: sum(1 for c in b1.calls if c[0] == fn) for fn in b1.entries}
-    log(f'# {label}: {len(test_set)} val scans in {n_batches} batches of {KITTI_BATCH}; '
-        f'launches {launches} ({rec["launches_per_batch"]} a batch, B1 with the recall '
-        f'counter and the evaluator: {rec["b1_calls"]})')
-    train_kernel_rows({k.name: k for k in cap}, launches, rows, prefix=label)
-    del cap, b1
+    ret_a, rec['launches'], rec['b1_calls'] = counted_eval(
+        kernels, rows, cfg, model, loader, test_set, out_dir, label, launched, len(batches))
+    rec['launches_per_batch'] = {n: v / len(batches) for n, v in rec['launches'].items()}
 
     ret, annos = eval_utils.eval_one_epoch(cfg, model, loader, test_set, out_dir, logger,
                                            KITTI_BATCH)
@@ -1820,6 +1883,537 @@ def kitti_train_phase(kernels, rows, cfg):
     log(f'# kitti_train host seconds a batch of {KITTI_TRAIN_BATCH} in one process: '
         f'{hs["cpp"]:.3f} with the C++ rulebook builder, {hs["numpy"]:.3f} with the '
         f'numpy one; rulebook overflow counters {hs["overflow"]}')
+    return rec
+
+
+# ------------------------------------------------------ device rulebooks
+
+def library_three_nn_chunked(call, chunk=4096):
+    """torch.cdist + topk in query chunks: a batch-flat level's whole
+    (B, M, N) distance matrix would take tens of GiB."""
+    src, valid, q = call[1]
+    offset = torch.where(valid, 0.0, 1e10)[:, None, :]
+    return [torch.topk(torch.cdist(q[:, i:i + chunk], src) ** 2 + offset, 3, dim=-1,
+                       largest=False) for i in range(0, q.shape[1], chunk)]
+
+
+def device_batch(batch_np, seed):
+    """The batch as the loader ships it with --rulebooks device: no tables,
+    each scan's valid voxels in a shuffled order."""
+    rng = np.random.RandomState(seed)
+    out = {k: v.copy() for k, v in batch_np.items() if k != 'rulebooks'}
+    for b in range(out['voxel_valid'].shape[0]):
+        n = int(out['voxel_valid'][b].sum())
+        perm = rng.permutation(n)
+        for key in ('voxels', 'voxel_coords', 'voxel_num_points'):
+            out[key][b, :n] = out[key][b, :n][perm]
+    return out
+
+
+def rulebooks_of(model, batch, device_mode):
+    """The backbone's levels and tables for one batch, host or device."""
+    from fv2p_torch.models.backbones_3d.spconv_backbone import Rulebooks
+    bd = model.vfe(dict(batch))
+    bb = model.backbone_3d
+    if device_mode:
+        return Rulebooks.on_device(bd, bb.shapes, bb.level_caps, bb.training)
+    return Rulebooks.from_host(bd, bb.shapes)
+
+
+def compare_rulebooks(hst, dev, batch_size):
+    """Per level and sample, the device tables' valid rows equal the host
+    builder's; the device tables, mapped to the host's per-sample rows,
+    equal the host tables. Returns {level: rows per sample}."""
+    from fv2p_torch.models.backbones_3d.spconv_backbone import LEVELS
+    levels = {'x_conv1': (hst.input, dev.input)}
+    levels.update({lvl: (hst.down[lvl][0], dev.down[lvl][0]) for lvl in hst.down})
+    maps, counts = {}, {}
+    for lvl, (h, d) in levels.items():
+        hv, dv = h.valid_mask(), d.valid_mask()
+        per_h = torch.bincount(h.coords()[hv, 0], minlength=batch_size)
+        per_d = torch.bincount(d.coords()[dv, 0], minlength=batch_size)
+        if not torch.equal(per_h, per_d):
+            fail(f'device_rulebooks {lvl}: rows per sample {per_d.tolist()}, host '
+                 f'{per_h.tolist()}')
+        if not torch.equal(d.keys[dv], h.keys[hv]):
+            fail(f'device_rulebooks {lvl}: the voxels differ from the host builder\'s')
+        m = torch.full((h.capacity + 1,), d.capacity, dtype=torch.int64, device=hv.device)
+        m[torch.nonzero(hv)[:, 0]] = torch.nonzero(dv)[:, 0]
+        maps[lvl], counts[lvl] = m, per_h.tolist()
+    for lvl in hst.subm:
+        hv = levels[lvl][0].valid_mask()
+        if not torch.equal(dev.subm[lvl][maps[lvl][:-1][hv]], maps[lvl][hst.subm[lvl][hv]]):
+            fail(f'device_rulebooks: the submanifold table of {lvl} differs from the host\'s')
+    srcs = dict(zip(LEVELS[1:], LEVELS[:-1]))
+    for dst, (h_out, h_nbr, h_inv) in hst.down.items():
+        _, d_nbr, d_inv = dev.down[dst]
+        hv, hs = h_out.valid_mask(), levels[srcs[dst]][0].valid_mask()
+        if not torch.equal(d_nbr[maps[dst][:-1][hv]], maps[srcs[dst]][h_nbr[hv]]):
+            fail(f'device_rulebooks: the gather table of {dst} differs from the host\'s')
+        if not torch.equal(d_inv[maps[srcs[dst]][:-1][hs]], maps[dst][h_inv[hs]]):
+            fail(f'device_rulebooks: the inverse table into {dst} differs from the host\'s')
+    return counts
+
+
+def modes_f32(cfg, meta, batch_h, batch_d, label, calibrate=False):
+    """One f32 forward (no TF32) from the same weights on the host-table
+    batch and on the device-mode batch. The sparse trunk's BEV map
+    (``spatial_features``, all the rulebook mode touches) within F32_ATOL;
+    the detections the same (valid flags and labels identical, boxes and
+    scores within F32_ATOL). MGAF's DCNs multiply rounding by ~1e3 on the way
+    from the BEV map to the heat map, so that two neighbouring peaks within
+    rounding of each other change places (``calibrate``, its seeded and
+    calibrated weights): there a control sets the limit, host mode alone
+    from the host BEV map with a relative perturbation of 1e-6. Valid flags
+    and labels must still be identical, and each of the box and score
+    differences at most CONTROL_FACTOR times the control's."""
+    with full_f32():
+        model32 = make_model(cfg, meta, None, batch_h if calibrate else None)
+        out_h, out_d = forward(model32, batch_h), forward(model32, batch_d)
+        sync()
+    if int(out_d['rulebook_overflow'].sum()) != 0:
+        fail(f'{label} f32: device rulebooks dropped rows {out_d["rulebook_overflow"].tolist()}')
+    bev_diff = float((out_h['spatial_features'] - out_d['spatial_features']).abs().max())
+    if bev_diff > F32_ATOL:
+        fail(f'{label} f32: the BEV maps of host and device rulebooks part by {bev_diff}')
+
+    def pred_diffs(a, b):
+        valid = a['pred_valid'] & b['pred_valid']
+        return {k: float((a[k][valid] - b[k][valid]).abs().max()) if valid.any() else 0.0
+                for k in ('pred_boxes', 'pred_scores')}
+
+    diffs = pred_diffs(out_h, out_d)
+    same = all(torch.equal(out_h[k], out_d[k]) for k in ('pred_valid', 'pred_labels'))
+    rec = {'bev_max_abs_diff': bev_diff, 'bev_max_abs': float(out_h['spatial_features'].abs().max()),
+           'detections': int(out_h['pred_valid'].sum()),
+           'detections_device': int(out_d['pred_valid'].sum()),
+           'keeps_and_labels_identical': same, 'max_abs_diff': diffs}
+    if not calibrate:
+        if not same:
+            fail(f'{label} f32: keeps or labels differ between host and device rulebooks')
+        if max(diffs.values()) > F32_ATOL:
+            fail(f'{label} f32: host and device rulebooks part by {diffs} > {F32_ATOL}')
+    else:
+        gen = torch.Generator(device='cuda').manual_seed(SEED)
+        with full_f32(), torch.no_grad():
+            sf = out_h['spatial_features']
+            bd = {'spatial_features': sf * (1 + 1e-6 * torch.randn(sf.shape, generator=gen,
+                                                                    device=sf.device)),
+                  'spatial_features_stride': out_h['spatial_features_stride']}
+            bd = model32.dense_head(model32.backbone_2d(bd))
+            control = model32.final_predictions(bd)
+        rec['control_max_abs_diff'] = pred_diffs(out_h, control)
+        rec['control_keeps_and_labels_identical'] = all(
+            torch.equal(out_h[k], control[k]) for k in ('pred_valid', 'pred_labels'))
+        if not same:
+            fail(f'{label} f32: keeps or labels differ between host and device rulebooks')
+        limit = {k: CONTROL_FACTOR * v for k, v in rec['control_max_abs_diff'].items()}
+        if any(diffs[k] > limit[k] for k in diffs):
+            fail(f'{label} f32: host and device rulebooks part by {diffs}, more than '
+                 f'{CONTROL_FACTOR} x the control\'s {rec["control_max_abs_diff"]}')
+    log(f'# {label} f32, host vs device rulebooks: BEV maps within {bev_diff:.3g} '
+        f'(of {rec["bev_max_abs"]:.3g}); {rec["detections"]} / {rec["detections_device"]} '
+        f'detections, keeps and labels identical: {same}, max abs difference {diffs}'
+        + (f'; control (host BEV map x (1 + 1e-6 N(0, 1))): identical '
+           f'{rec["control_keeps_and_labels_identical"]}, {rec["control_max_abs_diff"]}'
+           if calibrate else ''))
+    del model32
+    torch.cuda.empty_cache()
+    return rec
+
+
+def counted_forward(kernels, model, batch, label, launched):
+    """One forward with the counts set to 0 just before and read just after;
+    every kernel call captured. Each kernel in `launched` must launch, no
+    other. Returns (output, {name: Kernel with its calls}, launches)."""
+    from fv2p_torch.ops import cuda as kcuda
+    cap = copy_kernels(kernels)
+    kcuda.reset_launch_counts()
+    with patched(cap, capturing):
+        out = forward(model, batch)
+    sync()
+    launches = dict(kcuda.launch_counts)
+    for k in cap:
+        if (k.name in launched) != (launches[k.name] > 0):
+            fail(f'{label}: kernel {k.name} launched {launches[k.name]} times; the path '
+                 f'launches {sorted(launched)}')
+        if launches[k.name] != len(k.calls):
+            fail(f'{label} {k.name}: {launches[k.name]} launches, {len(k.calls)} calls')
+    log(f'# {label} main path launches: {launches}')
+    return out, {k.name: k for k in cap}, launches
+
+
+def device_rulebooks_phase(kernels, rows, cfg, mcfg, meta, batch_np, model, mgaf, record,
+                           mrec):
+    """FV2P and MGAF-3DSSD with --rulebooks device on the bench batch: the
+    voxels shuffled per scan, no tables. The device tables against the host
+    builder's, the f32 detections of both modes, B3's batch-mixed calls
+    against the plain version, the builder's time and host waits, the bf16
+    forwards of both modes and their peak memory. Returns (record, the
+    builder's closure for the profiler)."""
+    from fv2p_torch.utils.synthetic import batch_to_torch
+    batch_h = batch_to_torch(batch_np, 'cuda')
+    batch_d = batch_to_torch(device_batch(batch_np, SEED + 1), 'cuda')
+    rec = {}
+    with torch.no_grad():
+        hst, dev = rulebooks_of(model, batch_h, False), rulebooks_of(model, batch_d, True)
+    rec['rows_per_sample'] = compare_rulebooks(hst, dev, BATCH)
+    rec['overflow'] = dev.overflow.tolist()
+    if any(rec['overflow']):
+        fail(f'device_rulebooks: rows dropped at x_conv2..out: {rec["overflow"]}')
+    rec['level_capacity'] = {lvl: int(dev.down[lvl][0].capacity) for lvl in dev.down}
+    log(f'# device_rulebooks: every level\'s rows per sample equal the host builder\'s '
+        f'{rec["rows_per_sample"]}; the tables mapped to per-sample rows equal the host\'s; '
+        f'nothing dropped (capacities {rec["level_capacity"]})')
+    del hst, dev
+
+    bd_d = model.vfe(dict(batch_d))
+    bb = model.backbone_3d
+
+    def build():
+        from fv2p_torch.models.backbones_3d.spconv_backbone import Rulebooks
+        return Rulebooks.on_device(bd_d, bb.shapes, bb.level_caps, False)
+
+    with torch.no_grad():
+        rec['builder_ms'] = time_events(build, reps=10)
+        _, rec['builder_host_sync_sites'] = host_syncs(build)
+    # the sites in the port's code: host_syncs' own closing synchronise is
+    # torch's
+    own = {k: v for k, v in rec['builder_host_sync_sites'].items()
+           if k.startswith('fv2p_torch')}
+    rec['builder_host_syncs'] = sum(own.values())
+    if own:
+        fail(f'device_rulebooks: the builder waits for the card '
+             f'{rec["builder_host_syncs"]} times: {own}')
+    log(f'# device_rulebooks: the builder takes {rec["builder_ms"]:.3f} ms a forward '
+        f'(CUDA events, batch {BATCH}) and makes no host wait')
+
+    rec['fv2p_f32'] = modes_f32(cfg, meta, batch_h, batch_d, 'fv2p device_rulebooks')
+    rec['mgaf_f32'] = modes_f32(mcfg, meta, batch_h, batch_d, 'mgaf device_rulebooks',
+                                calibrate=True)
+
+    out, calls, launches = counted_forward(
+        kernels, model, batch_d, 'fv2p device_rulebooks',
+        ('rotated_iou', 'fps', 'three_nn', 'sa_group'))
+    check_outputs(out, int(cfg.MODEL.POST_PROCESSING.NMS_CONFIG.NMS_POST_MAXSIZE), FV2P_KEYS)
+    del out
+    b3 = calls['three_nn']
+    rec['b3_source_rows'] = [int(c[1][0].shape[1]) for c in b3.calls]
+    # B1, B2 and B4 see the inputs of host mode: only B3's calls are replayed
+    others = {k.name: k for k in copy_kernels(kernels) if k.name != 'three_nn'}
+    train_kernel_rows({'three_nn': b3, **others}, launches, rows, prefix='device_rulebooks',
+                      library=library_three_nn_chunked)
+    b3_row = next(r for r in rows if r['name'] == 'three_nn')
+    log(f'# device_rulebooks: B3 on the batch-mixed levels (sources {rec["b3_source_rows"]} '
+        f'rows, four samples wide) {b3_row["device_rulebooks_ms"]:.3f} ms against '
+        f'{b3_row["ms"]:.3f} ms on the host tables\' per-sample blocks')
+    del calls, b3
+
+    rec['fv2p'] = forward_stats(model, batch_d, 'fv2p device_rulebooks')
+    rec['mgaf'] = forward_stats(mgaf, batch_d, 'mgaf device_rulebooks')
+    rec['fv2p_host_forward_ms'] = record['forward_ms']['median']
+    rec['mgaf_host_forward_ms'] = mrec['forward_ms']['median']
+    # device memory a forward takes beyond what is resident, both modes here
+    rec['forward_extra_gib'] = {}
+    for name, m in (('fv2p', model), ('mgaf', mgaf)):
+        for mode, bt in (('host', batch_h), ('device', batch_d)):
+            sync()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            forward(m, bt)
+            sync()
+            rec['forward_extra_gib'][f'{name}_{mode}'] = (
+                torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    log(f'# device_rulebooks: device memory one forward takes beyond the resident '
+        f'(GiB): {rec["forward_extra_gib"]}')
+    return rec, build
+
+
+# ------------------------------------------------ SECOND and PointPillar
+
+SECOND_CFG = REPO / 'tools' / 'cfgs' / 'kitti_models' / 'second.yaml'
+PILLAR_CFG = REPO / 'tools' / 'cfgs' / 'kitti_models' / 'pointpillar.yaml'
+
+
+def pillar_batch(points, meta, cap):
+    """Pillars of each scan's points through the port's voxel generator
+    (pointpillar.yaml's 0.16 x 0.16 x 4 m pillars, MAX_POINTS_PER_VOXEL),
+    padded to `cap` rows."""
+    from fv2p_torch.datasets.processor.voxel_generator import VoxelGenerator
+    gen = VoxelGenerator(meta['voxel_size'], meta['point_cloud_range'],
+                         meta['max_points_per_voxel'], cap)
+    b, p = points.shape[0], meta['max_points_per_voxel']
+    out = {'voxels': np.zeros((b, cap, p, points.shape[-1]), np.float32),
+           'voxel_coords': np.zeros((b, cap, 3), np.int32),
+           'voxel_num_points': np.zeros((b, cap), np.int32),
+           'voxel_valid': np.zeros((b, cap), bool)}
+    for i in range(b):
+        v, c, n = gen.generate(points[i])
+        k = len(c)
+        out['voxels'][i, :k], out['voxel_coords'][i, :k] = v, c
+        out['voxel_num_points'][i, :k], out['voxel_valid'][i, :k] = n, True
+    return out
+
+
+def zoo_batches(label, zcfg, batch_np, train_np):
+    """(eval batch, train batch) on the card for SECOND (the bench voxels,
+    no tables) or PointPillar (pillars of the same scans' points)."""
+    from fv2p_torch.datasets import dataset_meta_from_cfg
+    from fv2p_torch.utils.synthetic import batch_to_torch
+    if label == 'second':
+        keep = ('voxels', 'voxel_coords', 'voxel_num_points', 'voxel_valid')
+        ev = {k: batch_np[k] for k in keep}
+        tr = {k: train_np[k] for k in keep + ('gt_boxes',)}
+    else:
+        ev = pillar_batch(batch_np['points'], dataset_meta_from_cfg(zcfg.DATA_CONFIG, 'test'),
+                          40000)
+        tr = pillar_batch(train_np['points'],
+                          dataset_meta_from_cfg(zcfg.DATA_CONFIG, 'train'), 16000)
+        tr['gt_boxes'] = train_np['gt_boxes']
+    return batch_to_torch(ev, 'cuda'), batch_to_torch(tr, 'cuda')
+
+
+def zoo_phase(kernels, rows, label, path, batch_np, train_np):
+    """One zoo yaml at full width: the bf16 forward at batch 4 on the bench
+    scans (median, per module, peak memory, host waits), counted (B1 only)
+    with its calls held against the plain version and timed, the f32
+    forward through the kernels against the plain versions; then train
+    steps at the yaml's batch: an f32 step through the kernels and through
+    the plain versions, 2 + 10 bf16 steps with every loss term finite and
+    the loss falling. Returns the record."""
+    from fv2p_torch.datasets import dataset_meta_from_cfg
+    from fv2p_torch.ops import cuda as kcuda
+    zcfg = load_cfg(path)
+    meta = dataset_meta_from_cfg(zcfg.DATA_CONFIG, 'test')
+    batch, tbatch = zoo_batches(label, zcfg, batch_np, train_np)
+    rec = {'voxels_per_scan': batch['voxel_valid'].sum(1).tolist(),
+           'voxel_cap': int(batch['voxel_valid'].shape[1])}
+    model = make_model(zcfg, meta, torch.bfloat16, calibrate_on=batch)
+    rec['parameters'] = sum(p.numel() for p in model.parameters())
+    post = int(zcfg.MODEL.POST_PROCESSING.NMS_CONFIG.NMS_POST_MAXSIZE)
+    out, calls, launches = counted_forward(kernels, model, batch, label, ('rotated_iou',))
+    rec['valid_detections'] = check_outputs(out, post, ('batch_box_preds', 'batch_cls_preds'))
+    rec['launches'] = launches
+    log(f'# {label}: {rec["parameters"]} parameters, {rec["valid_detections"]} valid '
+        f'detections over {BATCH} scans ({rec["voxels_per_scan"]} voxels of '
+        f'{rec["voxel_cap"]} a scan)')
+    del out
+    train_kernel_rows(calls, launches, rows, prefix=label)
+    rec['f32_kernel_vs_plain_max_abs'] = f32_forward(
+        kernels, zcfg, meta, batch, post, ('batch_box_preds', 'batch_cls_preds'), label,
+        ('pred_boxes', 'pred_scores', 'batch_box_preds', 'batch_cls_preds'), calibrate=True)
+    rec.update(forward_stats(model, batch, label))
+    rec['host_syncs'], rec['host_sync_sites'] = host_syncs(lambda: forward(model, batch))
+    log(f'# {label} host waits in one forward: {rec["host_syncs"]}; by line: '
+        f'{rec["host_sync_sites"]}')
+    del model
+    torch.cuda.empty_cache()
+
+    tmeta = dataset_meta_from_cfg(zcfg.DATA_CONFIG, 'train')
+    rec['train_batch'] = int(zcfg.OPTIMIZATION.BATCH_SIZE_PER_GPU)
+    if rec['train_batch'] != tbatch['voxels'].shape[0]:
+        fail(f'{label}: the train batch holds {tbatch["voxels"].shape[0]} scans, the yaml '
+             f'{rec["train_batch"]}')
+    with full_f32():
+        step = make_train_step(zcfg, tmeta, None)
+        tk, tg = _zoo_f32_step(step, tbatch, None)
+        tp, gp = _zoo_f32_step(step, tbatch, kernels)
+    rec['f32_kernel_vs_plain'] = compare_train_steps(f'{label} f32 step', tk, tp, tg, gp)
+    del step
+    torch.cuda.empty_cache()
+    step = make_train_step(zcfg, tmeta, torch.bfloat16)
+    trec = rec['train'] = timed_train_steps(kcuda, step, tbatch, (), lambda o: {
+        'positive_anchors': int((o['anchor_head_ret']['box_cls_labels'] > 0).sum())})
+    loss = trec['loss_terms']['loss']
+    if not loss[-1] < loss[0]:
+        fail(f'{label} train: the loss did not fall over {len(loss)} steps: {loss}')
+    if trec['first_step_targets']['positive_anchors'] <= 0:
+        fail(f'{label} train: no positive anchor in the first step')
+    log(f'# {label} train bf16 step at batch {rec["train_batch"]}, ms median (quartiles) of '
+        f'{TRAIN_TIMED}: ' + ', '.join(
+            f'{k} {v["median"]:.2f} ({v["q1"]:.2f}-{v["q3"]:.2f})' for k, v in trec['ms'].items())
+        + f'; peak {trec["peak_mem_gib"]:.2f} GiB; loss {[round(x, 3) for x in loss]}; '
+        f'first step {trec["first_step_targets"]}')
+    del step, batch, tbatch
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _zoo_f32_step(step, batch, kernels):
+    """Loss terms and gradients of one f32 step, through the plain versions
+    when `kernels` is given; the weights are left as they were."""
+    import copy
+    state = copy.deepcopy(step.model.state_dict())
+    with contextlib.ExitStack() as stack:
+        if kernels is not None:
+            stack.enter_context(patched(kernels, plain_route))
+        loss, terms, _ = step.forward_loss(batch)
+        step.backward(loss)
+    sync()
+    step.model.load_state_dict(state)
+    return {k: float(v.detach()) for k, v in terms.items()}, _grads(step.model)
+
+
+def kitti_eval_device_phase(kernels, rows, cfg, model, host_rec, host_first, host_first_np):
+    """eval_one_epoch over data/kitti's val scans with --rulebooks device,
+    the same bf16 model as the host-mode kitti_eval. The first run is
+    ``counted_eval``'s (the `kitti_eval_device_*` keys: B3's batch-mixed
+    calls at the test cap against the plain version, B1's calls); the
+    second's AP dict must equal host mode's; one batch in f32 through host
+    and device tables must give the same detections (names identical,
+    floats within KITTI_F32_ATOL)."""
+    from fv2p_torch.datasets import batch_to_numpy, build_dataloader, dataset_meta_from_cfg
+    from fv2p_torch.tools import eval_utils
+    from fv2p_torch.tools import test as test_runner
+    from fv2p_torch.utils.synthetic import batch_to_torch
+    logger = quiet_logger()
+    test_set = test_runner.make_dataset(cfg, training=False, logger=logger, rulebooks='device')
+    loader = build_dataloader(test_set, KITTI_BATCH, KITTI_WORKERS, training=False,
+                              pin_memory=True)
+    out_dir = REPO / 'output' / 'chip_smoke' / 'kitti_eval_device'
+    out_dir.mkdir(parents=True, exist_ok=True)
+    first_np = None
+    for b in loader:
+        first_np = batch_to_numpy(b)
+        break
+    if 'rulebooks' in first_np:
+        fail('kitti_eval_device: the loader shipped rulebooks')
+    ret_a, launches, b1_calls = counted_eval(
+        kernels, rows, cfg, model, loader, test_set, out_dir, 'kitti_eval_device',
+        ('rotated_iou', 'fps', 'three_nn', 'sa_group'), len(loader),
+        library=library_three_nn_chunked)
+    ret, _ = eval_utils.eval_one_epoch(cfg, model, loader, test_set, out_dir, logger,
+                                       KITTI_BATCH)
+    for r in (ret_a, ret):
+        if any(not np.isfinite(v) for v in r.values()) or r['device_rulebook_dropped']:
+            fail(f'kitti_eval_device: a result is not finite or rows were dropped: {r}')
+    ap = {k: v for k, v in ret.items() if '/' in k and not k.startswith('recall/')}
+    rec = {k: ret[k] for k in ('sec_per_example', 'loader_wait_s_per_batch',
+                               'forward_ms_median', 'device_rulebook_dropped')}
+    rec['launches'], rec['b1_calls'] = launches, b1_calls
+    rec['ap'], rec['recall'] = ap, {k: v for k, v in ret.items() if k.startswith('recall/')}
+    if ap != host_rec['ap']:
+        diff = {k: (v, host_rec['ap'].get(k)) for k, v in ap.items() if host_rec['ap'].get(k) != v}
+        fail(f'kitti_eval_device: the AP dict differs from host mode\'s: {diff}')
+    log(f'# kitti_eval_device: {ret["sec_per_example"] * 1e3:.2f} ms a scan (host tables '
+        f'{host_rec["sec_per_example"] * 1e3:.2f}), forward median '
+        f'{ret["forward_ms_median"]:.2f} ms (host {host_rec["forward_ms_median"]:.2f}), '
+        f'loader wait {ret["loader_wait_s_per_batch"] * 1e3:.2f} ms a batch (host '
+        f'{host_rec["loader_wait_s_per_batch"] * 1e3:.2f}); AP dict equal to host mode\'s '
+        f'({len(ap)} keys); nothing dropped')
+    dev_first = batch_to_torch(eval_utils.pad_batch_to_size(first_np, KITTI_BATCH)[0], 'cuda')
+    meta = dataset_meta_from_cfg(cfg.DATA_CONFIG, 'test')
+    with full_f32():
+        model32 = make_model(cfg, meta, None)
+        runs = []
+        for bt in (host_first, dev_first):
+            out = forward(model32, bt)
+            pred = {k: out[k].float().cpu().numpy() if out[k].is_floating_point()
+                    else out[k].cpu().numpy() for k in eval_utils.PRED_KEYS}
+            runs.append(test_set.generate_prediction_dicts(host_first_np, pred, cfg.CLASS_NAMES))
+    worst = 0.0
+    for ah, ad in zip(*runs):
+        if list(ah['name']) != list(ad['name']):
+            fail('kitti_eval_device f32: the detections differ between host and device tables')
+        for key in ('bbox', 'dimensions', 'location', 'rotation_y', 'score', 'boxes_lidar'):
+            if ah[key].size:
+                worst = max(worst, float(np.abs(ah[key] - ad[key]).max()))
+    if worst > KITTI_F32_ATOL:
+        fail(f'kitti_eval_device f32: host and device tables part by {worst} > {KITTI_F32_ATOL}')
+    rec['f32_detections'] = sum(len(a['name']) for a in runs[0])
+    rec['f32_max_abs_diff'] = worst
+    log(f'# kitti_eval_device f32 batch: {rec["f32_detections"]} detections, host and device '
+        f'tables identical in names, max abs difference {worst}')
+    del model32, loader
+    torch.cuda.empty_cache()
+    return rec
+
+
+def kitti_second_phase(kernels, rows):
+    """fv2p_torch.tools.train for one epoch of second.yaml on data/kitti's
+    32 train scans (Car and Pedestrian: the fixture has no Cyclist; the
+    yaml's batch 4, bf16, 4 spawned workers; fv2p.yaml's train level
+    capacities, below), then fv2p_torch.tools.test on its checkpoint over
+    the 24 val scans. Both must finish with finite numbers and no rows
+    dropped. Each run is counted: training launches no kernel, the test
+    run B1 alone, whose calls (NMS, the recall counter, the evaluator) are
+    held against the plain version and timed (the `kitti_second_*` keys)."""
+    import shutil
+    import yaml
+    from fv2p_torch.ops import cuda as kcuda
+    from fv2p_torch.tools import test as test_runner
+    from fv2p_torch.tools import train as train_runner
+    out = REPO / 'output' / 'chip_smoke' / 'kitti_second'
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    full = load_cfg(SECOND_CFG)
+
+    def plain(d):
+        return {k: plain(v) for k, v in d.items()} if isinstance(d, dict) else (
+            [plain(x) for x in d] if isinstance(d, (list, tuple)) else d)
+    cfg_d = {'CLASS_NAMES': ['Car', 'Pedestrian'], 'DATA_CONFIG': plain(full.DATA_CONFIG),
+             'MODEL': plain(full.MODEL), 'OPTIMIZATION': plain(full.OPTIMIZATION)}
+    cfg_d['DATA_CONFIG']['DATA_PATH'] = str(KITTI)
+    cfg_d['MODEL']['DENSE_HEAD']['ANCHOR_GENERATOR_CONFIG'] = \
+        cfg_d['MODEL']['DENSE_HEAD']['ANCHOR_GENERATOR_CONFIG'][:2]
+    # second.yaml sets no LEVEL_CAPACITIES, and with gt sampling the derived
+    # ones drop rows (1762 in one epoch on the card: JAX drops them without
+    # a word, ROADMAP.md C5; the port raises): fv2p.yaml's train caps, set
+    # for the same trunk topology on the same scans
+    cfg_d['MODEL']['BACKBONE_3D']['LEVEL_CAPACITIES'] = plain(
+        load_cfg(CFG).MODEL.BACKBONE_3D.LEVEL_CAPACITIES)
+    cfg_file = out / 'second_car_pedestrian.yaml'
+    cfg_file.write_text(yaml.safe_dump(cfg_d))
+    common = ['--cfg_file', str(cfg_file), '--workers', str(KITTI_WORKERS),
+              '--output_dir', str(out)]
+    t0 = time.perf_counter()
+    kcuda.reset_launch_counts()
+    run = train_runner.main(common + ['--epochs', '1'])
+    sync()
+    train_s = time.perf_counter() - t0
+    train_launches = dict(kcuda.launch_counts)
+    if any(train_launches.values()):
+        fail(f'kitti_second: training launched {train_launches}; its path launches none')
+    steps = run['steps']
+    bad = [(s['it'], k) for s in steps for k, v in s.items() if not np.isfinite(v)]
+    if bad or not steps:
+        fail(f'kitti_second: {len(steps)} steps, non-finite terms {bad}')
+    if any(s['rulebook_dropped'] for s in steps):
+        fail('kitti_second: device rulebooks dropped rows')
+    step_ms = np.array(run['step_s'][1:]) * 1e3
+    wait_ms = np.array(run['loader_wait_s'][1:]) * 1e3
+    ckpt = out / 'ckpt' / 'checkpoint_epoch_1.pth'
+    cap = copy_kernels(kernels)
+    kcuda.reset_launch_counts()
+    with patched(cap, capturing):
+        ret = test_runner.main(common + ['--ckpt', str(ckpt)])
+    sync()
+    test_launches = dict(kcuda.launch_counts)
+    for k in cap:
+        if (k.name == 'rotated_iou') != (test_launches[k.name] > 0):
+            fail(f'kitti_second test: kernel {k.name} launched {test_launches[k.name]} '
+                 f'times; the path launches B1 alone')
+        if test_launches[k.name] != len(k.calls):
+            fail(f'kitti_second {k.name}: {test_launches[k.name]} launches, '
+                 f'{len(k.calls)} calls')
+    train_kernel_rows({k.name: k for k in cap}, test_launches, rows, prefix='kitti_second')
+    del cap
+    if any(not np.isfinite(v) for v in ret.values()):
+        fail(f'kitti_second: a test result is not finite: {ret}')
+    rec = {'steps': len(steps), 'train_wall_s': train_s, 'train_launches': train_launches,
+           'test_launches': test_launches,
+           'step_ms_median': float(np.median(step_ms)) if step_ms.size else None,
+           'loader_wait_ms_mean': float(wait_ms.mean()) if wait_ms.size else None,
+           'loss': [s['loss'] for s in steps],
+           'test': {k: ret[k] for k in ('sec_per_example', 'loader_wait_s_per_batch',
+                                        'forward_ms_median', 'device_rulebook_dropped')},
+           'test_ap': {k: v for k, v in ret.items() if k.startswith('Car_3d/')}}
+    log(f'# kitti_second: {len(steps)} train steps at batch '
+        f'{cfg_d["OPTIMIZATION"]["BATCH_SIZE_PER_GPU"]} through the runner, step median '
+        f'{rec["step_ms_median"]} ms (loader wait {rec["loader_wait_ms_mean"]} ms a step), '
+        f'loss {[round(x, 3) for x in rec["loss"]]}; test: '
+        f'{ret["sec_per_example"] * 1e3:.2f} ms a scan, loader wait '
+        f'{ret["loader_wait_s_per_batch"] * 1e3:.2f} ms a batch, Car 3D {rec["test_ap"]}')
     return rec
 
 
@@ -2115,6 +2709,25 @@ def main():
     # 9c. MGAF training
     mtrec = mgaf_train_phase(kernels, mcfg, meta, rows)
 
+    # 9d. device rulebooks: FV2P and MGAF on the bench batch as the loader
+    # ships it with --rulebooks device, against host mode
+    drec, build_rulebooks = device_rulebooks_phase(kernels, rows, cfg, mcfg, meta, batch_np,
+                                                   model, mgaf, record, mrec)
+
+    # 9e. SECOND and PointPillar at full width on the bench scans, eval and
+    # train (batch 4 each, with the six cars of each scan as gt)
+    from fv2p_torch.utils.synthetic import synthetic_batch_np
+    zoo_train_np = synthetic_batch_np(meta, BATCH, N_CAP, N_FILL, N_POINTS, seed=SEED + 2,
+                                      gt='scan')
+    zrec = {label: zoo_phase(kernels, rows, label, path, batch_np, zoo_train_np)
+            for label, path in (('second', SECOND_CFG), ('pointpillar', PILLAR_CFG))}
+    del zoo_train_np
+
+    # 9f. the runners with device rulebooks and SECOND on data/kitti
+    krec['eval_device'] = kitti_eval_device_phase(kernels, rows, cfg, kmodel, krec['eval'],
+                                                  kfirst, kfirst_np)
+    krec['second'] = kitti_second_phase(kernels, rows)
+
     # 10. under the profiler and the sync debug mode, after every timed pass
     record.update(profile_stats(model, batch, 'fv2p'))
     mrec.update(profile_stats(mgaf, batch, 'mgaf'))
@@ -2140,12 +2753,17 @@ def main():
         k.calls.clear()
     mrec['b1']['device_ms'] = device_ms(
         lambda: [mgaf_b1.launch(a) for a in mgaf_b1.calls], reps=5)
+    with torch.no_grad():
+        drec['builder_kernels'] = queued_kernels(build_rulebooks)
+        drec['builder_device_ms'] = device_ms(build_rulebooks, reps=5)
+    log(f'# device_rulebooks: the builder queues {drec["builder_kernels"]} kernels and '
+        f'copies a forward, the card busy {drec["builder_device_ms"]:.3f} ms in them')
     log('# card busy in each kernel\'s calls of one forward (ms): '
         f'{ {row["name"]: round(row["device_ms"], 4) for row in rows} }; '
         f'B1 on MGAF\'s calls {mrec["b1"]["device_ms"]:.4f}')
     record.update(launches=launches, kernels=rows, nvidia_smi=smi,
                   valid_detections=n_valid, mgaf=mrec, train=trec, mgaf_train=mtrec,
-                  kitti=krec,
+                  kitti=krec, device_rulebooks=drec, zoo=zrec,
                   wall_s=time.perf_counter() - T_START)
     log(f'# chip_smoke.py wall time {record["wall_s"]:.1f} s')
 

@@ -36,18 +36,30 @@ class _ResMLPBlock(nn.Module):
 
 def _interpolate_level(st, downsample_times, voxel_size, pc_range, keypoints):
     """3-NN interpolate one sparse level's features onto keypoints (B, K, 3).
+    Returns (B, K, C).
 
-    The level holds per-sample blocks of ``st.sample_cap`` rows, so each
-    sample's search runs over its own block only. Returns (B, K, C)."""
+    Host-rulebook levels hold per-sample blocks of ``st.sample_cap`` rows,
+    so each sample's search runs over its own block. A batch-flat level
+    (device rulebooks) is searched whole for every sample with the other
+    samples' rows masked, as JAX's ``vmap`` of the masked search does: the
+    indices are rows of the level, so the features are gathered from the
+    level as it is, never copied per sample."""
     b = keypoints.shape[0]
-    if st.sample_cap <= 0 or st.batch_size != b:
-        raise NotImplementedError('batch-mixed sparse levels')
-    cap = st.sample_cap
     centers = common_utils.get_voxel_centers(
         st.coords()[:, 1:4], downsample_times, voxel_size, pc_range)
-    return pointops.three_nn_interpolate(
-        centers.reshape(b, cap, 3), st.valid_mask().reshape(b, cap),
-        st.features.reshape(b, cap, -1), keypoints)
+    valid = st.valid_mask()
+    if st.sample_cap > 0 and st.batch_size == b:
+        cap = st.sample_cap
+        return pointops.three_nn_interpolate(
+            centers.reshape(b, cap, 3), valid.reshape(b, cap),
+            st.features.reshape(b, cap, -1), keypoints)
+    if st.sample_cap > 0 or st.batch_size != b:
+        raise ValueError(f'a level of {st.batch_size} samples for {b} keypoint sets')
+    n = centers.shape[0]
+    own = valid[None, :] & (st.coords()[None, :, 0]
+                            == torch.arange(b, device=valid.device)[:, None])
+    return pointops.three_nn_interpolate_flat(
+        centers.expand(b, n, 3), own, st.features, keypoints)
 
 
 class ResidualVoxelToPointDecoder(nn.Module):

@@ -1,7 +1,7 @@
 """Config-driven detector assembly (counterpart of
 ``fv2p_tpu/models/detectors/detector3d_template.py``), restricted to the
-detectors and modules ported so far: FV2P and MGAF-3DSSD, inference and
-training.
+detectors and modules ported so far: FV2P, MGAF-3DSSD, SECOND and
+PointPillar, inference and training.
 
 Each of the 9 slots of the module topology is built iff its config key
 exists, and the forward runs the built slots in that order on one batch
@@ -13,12 +13,14 @@ NotImplementedError naming the ROADMAP queue."""
 import torch
 from torch import nn
 
-from ...utils import iou3d
+from ..model_utils import model_nms_utils
 from ..backbones_2d.base_bev_backbone import BaseBEVBackbone, DCNBEVBackbone
 from ..backbones_2d.map_to_bev.height_compression import HeightCompression
+from ..backbones_2d.map_to_bev.pointpillar_scatter import PointPillarScatter
 from ..backbones_3d.pfe.residual_v2p_decoder import ResidualVoxelToPointDecoder
-from ..backbones_3d.spconv_backbone import VoxelResBackBone8x
+from ..backbones_3d.spconv_backbone import BACKBONES
 from ..backbones_3d.vfe.mean_vfe import MeanVFE
+from ..backbones_3d.vfe.pillar_vfe import PillarVFE
 from ..dense_heads.anchor_head import AnchorHeadSingle, anchor_head_loss
 from ..dense_heads.center_af_head import CenterAFHeadSingle, center_af_head_loss
 from ..dense_heads.point_head_simple import PointHeadSimple, point_head_loss
@@ -34,8 +36,9 @@ _SLOT_KEYS = {'vfe': 'VFE', 'backbone_3d': 'BACKBONE_3D',
               'backbone_2d': 'BACKBONE_2D', 'dense_head': 'DENSE_HEAD',
               'post_pfe': 'POST_PFE', 'point_head': 'POINT_HEAD',
               'roi_head': 'ROI_HEAD'}
-_PORTED = {'VFE': ('MeanVFE',), 'BACKBONE_3D': ('VoxelResBackBone8x',),
-           'MAP_TO_BEV': ('HeightCompression',), 'PFE': (),
+_PORTED = {'VFE': ('MeanVFE', 'PillarVFE'),
+           'BACKBONE_3D': ('VoxelResBackBone8x', 'VoxelBackBone8x'),
+           'MAP_TO_BEV': ('HeightCompression', 'PointPillarScatter'), 'PFE': (),
            'BACKBONE_2D': ('BaseBEVBackbone', 'DCNBEVBackbone'),
            'DENSE_HEAD': ('AnchorHeadSingle', 'CenterAFHeadSingle'),
            'POST_PFE': ('ResidualVoxelToPointDecoder',),
@@ -51,8 +54,9 @@ def _not_ported(what):
 
 class Detector3DTemplate(nn.Module):
     """Builds the slots its config names; eval-mode forward through them,
-    then IoU-score-ranked NMS (``post_processing_withfgscores``), the
-    post-processing of both ported detectors."""
+    then ``final_predictions``: IoU-score-ranked NMS
+    (``post_processing_withfgscores``) for FV2P and MGAF-3DSSD, cls-score
+    NMS (``post_processing``) for SECOND and PointPillar."""
 
     def __init__(self, model_cfg, num_class, class_names, dataset_meta,
                  compute_dtype=None):
@@ -75,14 +79,20 @@ class Detector3DTemplate(nn.Module):
                                    [bev_cfg['NUM_FILTERS'][-1]])))
 
     def _build_vfe(self):
+        cfg, meta = self.model_cfg.VFE, self.dataset_meta
+        if cfg.NAME == 'PillarVFE':
+            return PillarVFE(cfg, meta['num_point_features'], meta['voxel_size'],
+                             meta['point_cloud_range'])
         return MeanVFE()
 
     def _build_backbone_3d(self):
-        meta = self.dataset_meta
-        return VoxelResBackBone8x(meta['num_point_features'], meta['grid_size'],
-                                  self.compute_dtype)
+        cfg, meta = self.model_cfg.BACKBONE_3D, self.dataset_meta
+        return BACKBONES[cfg.NAME](meta['num_point_features'], meta['grid_size'], self.compute_dtype,
+                   level_caps=cfg.get('LEVEL_CAPACITIES'))
 
     def _build_map_to_bev_module(self):
+        if self.model_cfg.MAP_TO_BEV.NAME == 'PointPillarScatter':
+            return PointPillarScatter(self.dataset_meta['grid_size'])
         return HeightCompression()
 
     def _build_backbone_2d(self):
@@ -131,8 +141,11 @@ class Detector3DTemplate(nn.Module):
         with torch.no_grad():
             for module in self.module_list():
                 batch_dict = module(batch_dict)
-            batch_dict.update(self.post_processing_withfgscores(batch_dict))
+            batch_dict.update(self.final_predictions(batch_dict))
         return batch_dict
+
+    def final_predictions(self, batch_dict):
+        return self.post_processing_withfgscores(batch_dict)
 
     def train_forward(self, batch_dict):
         """The slots in train mode, with autograd and without
@@ -142,11 +155,42 @@ class Detector3DTemplate(nn.Module):
             batch_dict = module(batch_dict)
         return batch_dict
 
+    def post_processing(self, batch_dict):
+        """Cls-score NMS: each anchor's best class probability above
+        SCORE_THRESH, one NMS a scan; with ``MULTI_CLASSES_NMS`` one NMS a
+        scan and class, the classes' kept rows concatenated. Fixed-shape
+        (B, post_max), or (B, C * post_max), boxes / scores / labels /
+        valid."""
+        pp = self.model_cfg.POST_PROCESSING
+        nms_cfg = pp.NMS_CONFIG
+        box_preds = batch_dict['batch_box_preds']              # (B, K, 7)
+        cls_preds = batch_dict['batch_cls_preds']              # (B, K, C)
+        cls_probs = cls_preds if batch_dict.get('cls_preds_normalized', False) \
+            else torch.sigmoid(cls_preds)
+        score_thresh = float(pp.SCORE_THRESH)
+        if nms_cfg.get('MULTI_CLASSES_NMS', False):
+            per_scan = [model_nms_utils.multi_classes_nms(probs, boxes, nms_cfg,
+                                                          score_thresh)
+                        for probs, boxes in zip(cls_probs, box_preds)]
+            boxes, scores, labels, valid = (torch.stack(x) for x in zip(*per_scan))
+            return {'pred_boxes': boxes, 'pred_scores': scores,
+                    'pred_labels': labels.long(), 'pred_valid': valid}
+        scores, labels = cls_probs.max(dim=-1)
+        keep = [model_nms_utils.class_agnostic_nms(sc, bx, nms_cfg, score_thresh)
+                for sc, bx in zip(scores, box_preds)]
+        keep_idx, final_scores, keep_valid = (torch.stack(x) for x in zip(*keep))
+        return {
+            'pred_boxes': torch.gather(
+                box_preds, 1, keep_idx[..., None].expand(-1, -1, box_preds.shape[-1])),
+            'pred_scores': final_scores,
+            'pred_labels': torch.gather(labels + 1, 1, keep_idx),
+            'pred_valid': keep_valid,
+        }
+
     def post_processing_withfgscores(self, batch_dict):
         """IoU-score-ranked NMS with foreground-score filtering; fixed-shape
         (B, post_max) boxes / scores / labels / valid."""
         pp = self.model_cfg.POST_PROCESSING
-        nms_cfg = pp.NMS_CONFIG
         box_preds = batch_dict['batch_box_preds']              # (B, K, 7)
         cls_preds = batch_dict['batch_cls_preds']              # (B, K, C)
         iouscore = batch_dict['batch_iouscore_preds'][..., 0]  # (B, K)
@@ -158,24 +202,15 @@ class Detector3DTemplate(nn.Module):
         else:
             labels = torch.argmax(cls_probs, dim=-1) + 1
 
-        nms_scores = torch.where(fg_scores >= float(pp.SCORE_THRESH), iouscore,
-                                 float('-inf'))
-        pre = int(min(nms_cfg.NMS_PRE_MAXSIZE, box_preds.shape[1]))
-        post = int(nms_cfg.NMS_POST_MAXSIZE)
-        keep = [iou3d.nms_rotated(bx, sc, float(nms_cfg.NMS_THRESH),
-                                  pre_max=pre, post_max=post)
-                for bx, sc in zip(box_preds, nms_scores)]
-        keep_idx = torch.stack([k[0] for k in keep])
-        keep_valid = torch.stack([k[1] for k in keep])
-
-        final_boxes = torch.gather(
-            box_preds, 1, keep_idx[..., None].expand(-1, -1, box_preds.shape[-1]))
-        final_scores = torch.gather(iouscore, 1, keep_idx)
-        final_labels = torch.gather(labels, 1, keep_idx)
+        keep = [model_nms_utils.class_agnostic_nms_withfgscore(
+                    fg, loc, bx, pp.NMS_CONFIG, float(pp.SCORE_THRESH))
+                for fg, loc, bx in zip(fg_scores, iouscore, box_preds)]
+        keep_idx, final_scores, keep_valid = (torch.stack(x) for x in zip(*keep))
         return {
-            'pred_boxes': final_boxes,
-            'pred_scores': torch.where(keep_valid, final_scores, 0.0),
-            'pred_labels': final_labels,
+            'pred_boxes': torch.gather(
+                box_preds, 1, keep_idx[..., None].expand(-1, -1, box_preds.shape[-1])),
+            'pred_scores': final_scores,
+            'pred_labels': torch.gather(labels, 1, keep_idx),
             'pred_valid': keep_valid,
         }
 
@@ -191,15 +226,30 @@ class MGAF3DSSD(Detector3DTemplate):
     CenterAF head (max-pool NMS + top-K decode) -> IoU-score-ranked NMS."""
 
 
+class SECONDNet(Detector3DTemplate):
+    """Single-stage anchor-based detector: mean VFE -> plain sparse backbone
+    (device rulebooks) -> BEV backbone -> anchor head -> cls-score NMS."""
+
+    def final_predictions(self, batch_dict):
+        return self.post_processing(batch_dict)
+
+
+class PointPillar(SECONDNet):
+    """SECOND over pillars: PillarVFE -> scatter onto the BEV canvas -> BEV
+    backbone -> anchor head -> cls-score NMS."""
+
+
 DETECTOR_REGISTRY = {'FromVoxelToPoint': FromVoxelToPoint,
-                     'MGAF3DSSD': MGAF3DSSD}
+                     'MGAF3DSSD': MGAF3DSSD, 'SECONDNet': SECONDNet,
+                     'PointPillar': PointPillar}
 
 
 def compute_training_loss(model, batch_dict):
     """The training loss of a train-mode forward's ``batch_dict``: for FV2P
     the RPN, point-head and RCNN losses summed, for MGAF-3DSSD the CenterAF
-    head's eight terms. Returns (loss, terms), every term a 0-d tensor,
-    ``terms['loss']`` the total."""
+    head's eight terms, for SECOND and PointPillar the RPN loss alone.
+    Returns (loss, terms), every term a 0-d tensor, ``terms['loss']`` the
+    total."""
     cfg = model.model_cfg
     if isinstance(model, MGAF3DSSD):
         rpn_loss, tb = center_af_head_loss(cfg.DENSE_HEAD, batch_dict['head_ret'])
@@ -208,6 +258,9 @@ def compute_training_loss(model, batch_dict):
     head = model.dense_head
     rpn_loss, tb = anchor_head_loss(cfg.DENSE_HEAD, batch_dict['anchor_head_ret'],
                                     head.anchors_flat, model.num_class)
+    if isinstance(model, SECONDNet):
+        tb['loss'] = rpn_loss
+        return rpn_loss, tb
     point_loss, tb_p = point_head_loss(cfg.POINT_HEAD, batch_dict['point_head_ret'])
     rcnn_loss, tb_r = roi_head_loss(cfg.ROI_HEAD, batch_dict['roi_head_ret'])
     tb.update(tb_p)

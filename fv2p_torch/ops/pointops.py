@@ -1,7 +1,8 @@
 """Point-cloud ops (counterpart of ``fv2p_tpu/ops/pointops.py``):
 
   * farthest_point_sample_batch  (kernel B2 + wraparound padding)
-  * three_nn / three_nn_interpolate  (kernel B3 + inverse-distance weights)
+  * three_nn / three_nn_interpolate(_flat)  (kernel B3 + inverse-distance
+    weights)
   * ball_query_group  (gather variant)
   * points_in_boxes_index
   * roipoint_pool3d
@@ -31,12 +32,21 @@ def three_nn_interpolate(src_xyz, src_valid, src_feats, query_xyz):
     batched: src (B, N, 3), src_valid (B, N), src_feats (B, N, C),
     query (B, M, 3) -> (B, M, C). weight = (1/(d2+1e-8)) / sum."""
     b, n, c = src_feats.shape
+    return three_nn_interpolate_flat(src_xyz, src_valid, src_feats.reshape(b * n, c),
+                                     query_xyz, sample_rows=n)
+
+
+def three_nn_interpolate_flat(src_xyz, src_valid, src_feats, query_xyz, sample_rows=0):
+    """``three_nn_interpolate`` with the features of all sources in one
+    array src_feats (R, C): query set b's neighbours are the rows
+    ``b * sample_rows + idx``. With ``sample_rows`` 0 every query set
+    searches one source array shared by the batch (src (B, N, 3) and
+    src_valid (B, N) per set, the indices rows of src_feats)."""
     d, idx = three_nn(src_xyz, src_valid, query_xyz)
     w = 1.0 / (d + 1e-8)
     w = w / w.sum(dim=-1, keepdim=True)
-    off = (torch.arange(b, device=idx.device) * n)[:, None, None]
-    gathered = src_feats.reshape(b * n, c)[(idx.long() + off)]   # (B,M,3,C)
-    return (gathered * w[..., None]).sum(dim=2)
+    off = torch.arange(idx.shape[0], device=idx.device)[:, None, None] * sample_rows
+    return (src_feats[idx.long() + off] * w[..., None]).sum(dim=2)
 
 
 def first_k_hits(hits, k):

@@ -1,10 +1,22 @@
 """Fixed-capacity sparse voxel tensor (counterpart of
-``fv2p_tpu/ops/sparse/sparse_tensor.py``, host-rulebook layout only).
+``fv2p_tpu/ops/sparse/sparse_tensor.py``).
 
-Rows are per-sample blocks of ``sample_cap`` rows; each valid row carries a
-z-last linearized key ``((b * H + y) * W + x) * D + z`` and invalid rows
-carry ``INVALID_KEY``. Neighbour tables come from the host rulebook, so the
-tensor needs no occupancy index.
+Each valid row carries a z-last linearized key
+``((b * H + y) * W + x) * D + z`` and invalid rows carry ``INVALID_KEY``.
+Two layouts:
+
+* host rulebooks (``from_host_coords``): per-sample blocks of
+  ``sample_cap`` rows, the neighbour tables built on the host;
+* device rulebooks (``from_coords``, ``from_candidate_keys``;
+  ``sample_cap == 0``): one batch-flat array whose valid rows are in
+  ascending key order across the whole batch, invalid rows at the tail.
+  Since ``b`` is the key's high part, each sample's rows are contiguous.
+  ``lookup`` finds a voxel's row by a binary search over the sorted keys
+  (JAX finds the same row through per-column occupancy bits and popcounts,
+  because sorts are slow on the TPU; the rows are the same).
+
+Every key must stay below ``INVALID_KEY``: ``check_key_range`` raises
+where ``B * D * H * W`` reaches it.
 """
 import dataclasses
 from typing import Tuple
@@ -36,6 +48,32 @@ class SparseTensor:
     def replace(self, **kw):
         return dataclasses.replace(self, **kw)
 
+    @property
+    def capacity(self):
+        return self.keys.shape[0]
+
+    def lookup(self, b, z, y, x, valid):
+        """Row of voxel (b, z, y, x), or ``capacity`` (the zero row) where it
+        is absent or ``valid`` is False; batch-flat layout only. All args
+        broadcastable int64 tensors."""
+        d, h, w = self.spatial_shape
+        q = ((b * h + y) * w + x) * d + z
+        q = torch.where(valid, q, INVALID_KEY)
+        pos = torch.searchsorted(self.keys, q.reshape(-1)).reshape(q.shape)
+        pos = pos.clamp(max=self.capacity - 1)
+        found = valid & (self.keys[pos] == q)
+        return torch.where(found, pos, self.capacity)
+
+
+def check_key_range(spatial_shape, batch_size):
+    """Raise ValueError unless every key of a (B, D, H, W) grid lies below
+    ``INVALID_KEY`` (static ints: no host read of the card)."""
+    d, h, w = (int(x) for x in spatial_shape)
+    if int(batch_size) * d * h * w >= INVALID_KEY:
+        raise ValueError(
+            f'sparse keys overflow: batch {batch_size} x grid {(d, h, w)} = '
+            f'{int(batch_size) * d * h * w} cells, keys must stay below {INVALID_KEY}')
+
 
 def encode_keys(coords_bzyx, spatial_shape):
     d, h, w = spatial_shape
@@ -53,6 +91,48 @@ def decode_keys(keys, spatial_shape):
     return torch.stack([b, z, y, x], dim=1)
 
 
+def from_coords(coords_bzyx, features, spatial_shape, batch_size,
+                valid_mask=None):
+    """Batch-flat SparseTensor from unsorted, padded, unique voxels:
+    coords (N, 4) [b, z, y, x], features (N, C), valid (N,). The valid rows
+    go to their rank in key order (a stable sort of the keys, invalid keys
+    last), the invalid rows to the tail with zero features."""
+    check_key_range(spatial_shape, batch_size)
+    if valid_mask is None:
+        valid_mask = torch.ones(coords_bzyx.shape[0], dtype=torch.bool,
+                                device=coords_bzyx.device)
+    keys = torch.where(valid_mask,
+                       encode_keys(coords_bzyx.to(torch.int64), spatial_shape),
+                       INVALID_KEY)
+    keys, order = torch.sort(keys, stable=True)
+    feats = features[order].masked_fill(~valid_mask[order][:, None], 0.0)
+    return SparseTensor(features=feats, keys=keys,
+                        spatial_shape=tuple(int(x) for x in spatial_shape),
+                        batch_size=int(batch_size))
+
+
+def from_candidate_keys(cand_keys, capacity, spatial_shape, batch_size, dtype):
+    """Feature-less batch-flat SparseTensor of the distinct valid keys of
+    ``cand_keys`` (any order, repeats allowed, invalid = INVALID_KEY), the
+    smallest ``capacity`` of them in ascending order, and the number of
+    distinct keys past the capacity (a 0-d device tensor): those rows are
+    dropped, as JAX's ``from_occupancy_grid`` drops every rank past its
+    capacity."""
+    srt, _ = torch.sort(cand_keys)
+    first = torch.ones_like(srt, dtype=torch.bool)
+    first[1:] = srt[1:] != srt[:-1]
+    first &= srt != INVALID_KEY
+    rank = torch.cumsum(first, 0) - 1
+    tgt = torch.where(first & (rank < capacity), rank, capacity)
+    keys = srt.new_full((capacity + 1,), INVALID_KEY).scatter_(0, tgt, srt)
+    dropped = torch.clamp(first.sum() - capacity, min=0)
+    return SparseTensor(features=torch.zeros((capacity, 0), dtype=dtype,
+                                             device=srt.device),
+                        keys=keys[:capacity],
+                        spatial_shape=tuple(int(x) for x in spatial_shape),
+                        batch_size=int(batch_size)), dropped
+
+
 def from_host_coords(coords_zyx, valid, features_flat, spatial_shape,
                      batch_size):
     """SparseTensor from host-sorted per-sample coords.
@@ -61,6 +141,7 @@ def from_host_coords(coords_zyx, valid, features_flat, spatial_shape,
     valid: (B, cap) bool; features_flat: (B*cap, C).
     """
     b, cap = coords_zyx.shape[:2]
+    check_key_range(spatial_shape, b)
     batch_col = torch.arange(b, device=coords_zyx.device).view(b, 1, 1)
     coords4 = torch.cat([batch_col.expand(b, cap, 1),
                          coords_zyx.to(torch.int64)], dim=-1).reshape(b * cap, 4)

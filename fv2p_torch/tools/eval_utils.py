@@ -110,6 +110,7 @@ def eval_one_epoch(cfg, model, loader, test_set, eval_dir, logger, batch_size,
     recall = {('recall_rcnn_%s' % str(t)): 0 for t in thresh_list}
     recall.update({('recall_roi_%s' % str(t)): 0 for t in thresh_list})
     total_gt = 0
+    dropped = None                # device rulebooks: rows dropped per level
     forward_s, waits = [], []
     n_first = 0
     for i, (_, (batch_np, n_real, batch), wait) in enumerate(prefetch(loader, convert)):
@@ -118,8 +119,16 @@ def eval_one_epoch(cfg, model, loader, test_set, eval_dir, logger, batch_size,
         with torch.no_grad():
             out = model(dict(batch))
         pred = {k: (out[k].float() if out[k].is_floating_point() else out[k]).cpu().numpy()
-                for k in PRED_KEYS}
+                for k in PRED_KEYS + ('rulebook_overflow',) if k in out}
         forward_s.append(time.perf_counter() - t0)
+        if 'rulebook_overflow' in pred:
+            batch_drop = pred.pop('rulebook_overflow')
+            dropped = batch_drop if dropped is None else dropped + batch_drop
+            if batch_drop.any():
+                raise RuntimeError(
+                    'device rulebooks: level capacities dropped %s sparse rows '
+                    '(x_conv2, x_conv3, x_conv4, out) in eval batch %d'
+                    % (batch_drop.tolist(), i))
         if i == 0:
             n_first = n_real
 
@@ -153,6 +162,10 @@ def eval_one_epoch(cfg, model, loader, test_set, eval_dir, logger, batch_size,
     elif of['samples']:
         logger.info('rulebook overflow check: clean over %d samples, '
                     'max_active=%s' % (of['samples'], of['max_active']))
+    if dropped is not None:
+        logger.info('device rulebook overflow check: clean over %d batches '
+                    '(rows dropped at x_conv2, x_conv3, x_conv4, out: %s)'
+                    % (len(forward_s), dropped.tolist()))
 
     ret_dict = {}
     if total_gt > 0:
@@ -173,6 +186,8 @@ def eval_one_epoch(cfg, model, loader, test_set, eval_dir, logger, batch_size,
     ret_dict['sec_per_example_first_batch'] = first_batch_sec
     ret_dict['loader_wait_s_per_batch'] = float(np.mean(waits))
     ret_dict['forward_ms_median'] = float(np.median(forward_s) * 1e3)
+    if dropped is not None:
+        ret_dict['device_rulebook_dropped'] = float(dropped.sum())
 
     with open(eval_dir / 'result.json', 'w') as f:
         json.dump(ret_dict, f, indent=2)

@@ -21,13 +21,13 @@ import torch
 from ..config import REPO_ROOT, EasyDict, cfg_from_list, cfg_from_yaml_file
 from ..datasets import build_dataloader, build_dataset, dataset_meta_from_cfg
 from ..models import build_network
+from ..models.backbones_3d.spconv_backbone import reads_host_tables
 from ..utils import common_utils
 from ..weights import init_random_
 from .eval_utils import eval_one_epoch
 
-NOT_PORTED = ('--dist, --num_devices and --rulebooks device (multi-GPU and '
-              'device-built rulebooks, ROADMAP.md A3/A4) are not ported: '
-              'passing one raises.')
+NOT_PORTED = ('--dist and --num_devices (multi-GPU, ROADMAP.md A3) are not '
+              'ported: passing one raises.')
 CKPT_PATTERN = re.compile(r'^checkpoint_epoch_(\d+)\.pth$')
 
 
@@ -54,12 +54,14 @@ def add_common_args(parser):
                         help='not ported (ROADMAP.md A3): raises')
     parser.add_argument('--rulebooks', choices=['host', 'device'], default='host',
                         help='host: per-sample rulebooks built in the loader '
-                             'workers (C++); device: not ported (ROADMAP.md A4), raises')
+                             'workers (C++); device: built in the forward from '
+                             'the voxels. A backbone that takes no host tables '
+                             '(VoxelBackBone8x) always builds its own')
 
 
 def load_config(args):
     """The yaml with --set applied, and the refusals of what is not ported."""
-    if args.dist or args.num_devices is not None or args.rulebooks != 'host':
+    if args.dist or args.num_devices is not None:
         raise NotImplementedError(NOT_PORTED)
     cfg = EasyDict()
     cfg_from_yaml_file(args.cfg_file, cfg)
@@ -78,12 +80,14 @@ def output_dir_of(cfg, args):
     return REPO_ROOT / 'output' / 'torch' / cfg.EXP_GROUP_PATH / cfg.TAG / args.extra_tag
 
 
-def make_dataset(cfg, training, logger):
-    """The yaml's dataset for one mode, its rulebooks at the mode's level
-    capacities."""
+def make_dataset(cfg, training, logger, rulebooks='host'):
+    """The yaml's dataset for one mode. With host rulebooks, and a backbone
+    that reads them, each sample carries its tables at the mode's level
+    capacities; otherwise the samples carry the voxels alone, unsorted."""
     dataset = build_dataset(cfg.DATA_CONFIG, class_names=cfg.CLASS_NAMES,
                             training=training, logger=logger)
-    if cfg.MODEL.get('BACKBONE_3D') is not None:
+    backbone = cfg.MODEL.get('BACKBONE_3D')
+    if rulebooks == 'host' and backbone is not None and reads_host_tables(backbone.NAME):
         dataset.set_rulebook_spec(cfg.MODEL.BACKBONE_3D.NAME,
                                   caps_override=cfg.MODEL.BACKBONE_3D.get('LEVEL_CAPACITIES'))
     return dataset
@@ -161,7 +165,7 @@ def main(argv=None):
     logger = common_utils.create_logger(
         eval_dir / ('log_eval_%s.txt' % datetime.datetime.now().strftime('%Y%m%d-%H%M%S')))
 
-    test_set = make_dataset(cfg, training=False, logger=logger)
+    test_set = make_dataset(cfg, training=False, logger=logger, rulebooks=args.rulebooks)
     loader = build_dataloader(test_set, batch_size, args.workers, training=False,
                               pin_memory=args.device == 'cuda')
     model = make_model(cfg, args, 'test')

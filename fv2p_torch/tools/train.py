@@ -55,6 +55,19 @@ def parse_config(argv=None):
     return args, test_runner.load_config(args)
 
 
+def check_device_overflow(table, names, epoch):
+    """Raise if a step's device rulebooks dropped sparse rows at a level's
+    capacity (``rulebook_dropped`` of the epoch's loss table), as the host
+    builder raises at an overflow."""
+    if 'rulebook_dropped' not in names:
+        return
+    dropped = table[:, names.index('rulebook_dropped')]
+    if (dropped > 0).any():
+        raise RuntimeError(
+            'device rulebooks: a level capacity dropped %d sparse rows in epoch %d '
+            '(raise MODEL.BACKBONE_3D.LEVEL_CAPACITIES)' % (int(dropped.sum()), epoch + 1))
+
+
 def save_checkpoint(trainer, epoch, ckpt_dir):
     """checkpoint_epoch_<epoch>.pth, written to a temporary name first."""
     path = ckpt_dir / f'checkpoint_epoch_{epoch}.pth'
@@ -99,7 +112,8 @@ def main(argv=None, on_resume=None):
     logger.info('**********************Start logging**********************')
     log_config_to_file(cfg, logger=logger)
 
-    train_set = test_runner.make_dataset(cfg, training=True, logger=logger)
+    train_set = test_runner.make_dataset(cfg, training=True, logger=logger,
+                                         rulebooks=args.rulebooks)
     if args.fix_random_seed:
         train_set.rng = np.random.RandomState(FIXED_SEED)
     loader = build_dataloader(train_set, batch_size, args.workers, training=True,
@@ -138,6 +152,7 @@ def main(argv=None, on_resume=None):
             names = sorted(terms[0])
             table = torch.stack([torch.stack([m[k].float() for k in names])
                                  for m in terms]).cpu().numpy()
+            check_device_overflow(table, names, epoch)
             for i, row in enumerate(table):
                 line = dict(zip(names, (float(x) for x in row)),
                             epoch=epoch, it=epoch * steps_per_epoch + i + 1)
@@ -167,7 +182,8 @@ def evaluate_checkpoints(cfg, args, output_dir, batch_size, logger):
     """eval_one_epoch of the newest --num_epochs_to_eval checkpoints;
     returns {epoch: result dict}."""
     eval_dir = output_dir / 'eval' / 'eval_with_train'
-    test_set = test_runner.make_dataset(cfg, training=False, logger=logger)
+    test_set = test_runner.make_dataset(cfg, training=False, logger=logger,
+                                        rulebooks=args.rulebooks)
     loader = build_dataloader(test_set, batch_size, args.workers, training=False,
                               pin_memory=args.device == 'cuda')
     model = test_runner.make_model(cfg, args, 'test')

@@ -29,7 +29,9 @@ class TrainStep:
     training step and returns the loss terms and ``grad_norm`` (the global
     norm before clipping), all 0-d tensors on the model's device; the three
     phases are also callable one by one (``forward_loss``, ``backward``,
-    ``update``), so that a caller can time them."""
+    ``update``), so that a caller can time them. With device rulebooks the
+    metrics also hold ``rulebook_dropped``, the sparse rows the levels'
+    capacities dropped (the caller reads it with the rest and raises)."""
 
     def __init__(self, model, optim_cfg, total_steps):
         self.model = model.train()
@@ -57,9 +59,11 @@ class TrainStep:
         return grad_norm
 
     def step(self, batch_dict):
-        loss, terms, _ = self.forward_loss(batch_dict)
+        loss, terms, out = self.forward_loss(batch_dict)
         self.backward(loss)
         grad_norm = self.update()
         metrics = {k: v.detach() for k, v in terms.items()}
         metrics['grad_norm'] = grad_norm
+        if 'rulebook_overflow' in out:
+            metrics['rulebook_dropped'] = out['rulebook_overflow'].sum()
         return metrics
