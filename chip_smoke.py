@@ -159,6 +159,33 @@ SECOND and PointPillar:
     launches no kernel; the test run B1 alone, its calls held to the plain
     version, `kitti_second_*` keys); the step median and the loader's
     wait.
+  * second_multihead: kitti_models/second_multihead.yaml (the multihead
+    anchor head with 1x1 heads, one NMS lane a class) as second above.
+
+Then the multihead models of nuScenes on the committed fixture
+(data/nuscenes; the script fails without it), each as second above but on
+the fixture's scans through NuScenesDataset: the eval batch is 4 scans in
+test mode (the 2 val scans, then train scans), the train batch the first 4
+samples of the CBGS-resampled train split with gt sampling. A sparse trunk
+gets host rulebooks at capacities measured on the batch's own scans (the
+most rows a level holds, times CAP_MARGIN), each printed beside the
+occupancy; the gt rows past MAX_GT_BOXES are counted; the anchors above
+SCORE_THRESH are counted per (scan, class) NMS lane.
+
+  * nuscenes: nuscenes_models/cbgs_second_multihead.yaml, the 1024 x 1024
+    x 40 grid, 10 classes, 6 heads with separate regression, 9-dim boxes.
+  * nuscenes_pp: nuscenes_models/cbgs_pp_multihead.yaml on pillars of the
+    same scans (its first BEV level downsampled by a strided conv).
+  * nuscenes_runner: fv2p_torch.tools.train for 30 epochs of 10 steps of
+    cbgs_second_multihead_overfit.yaml (the yaml's LEVEL_CAPACITIES, device
+    rulebooks, nothing dropped; no kernel launches; after one epoch the eval-mode BatchNorm statistics
+    still lag and the decoded boxes overflow), then fv2p_torch.tools.test
+    on its checkpoint with the native evaluator (mAP and NDS finite; B1
+    alone, its calls held to the plain version, `nuscenes_runner_*` keys);
+    then one train epoch
+    with --rulebooks device at NUSC_SMALL_CAPS, which must raise within
+    train.LOG_INTERVAL steps of its first dropped row and write no
+    checkpoint.
 
 The earlier paths keep their repetitions: the whole script stays within
 half its time limit without a cut.
@@ -760,6 +787,27 @@ def corner_phase(by_name):
 
 # --------------------------------------------------------------- the run
 
+def kernel_list():
+    """The four kernels with their wrapper modules and plain versions."""
+    from fv2p_torch.ops.cuda import fps, rotated_iou, sa_group, three_nn
+    return [
+        Kernel('rotated_iou', rotated_iou,
+               {'iou_bev_cuda': 'iou_bev_plain',
+                'iou_bev_upper_cuda': 'iou_bev_upper_plain',
+                'overlap_matrix_cuda': 'overlap_matrix_plain'},
+               'fv2p_torch/ops/csrc/rotated_iou.cu',
+               'fv2p_tpu/ops/pallas/rotated_iou.py:125'),
+        Kernel('fps', fps, {'fps_cuda': 'fps_plain'}, 'fv2p_torch/ops/csrc/fps.cu',
+               'fv2p_tpu/ops/pallas/fps.py:89'),
+        Kernel('three_nn', three_nn, {'three_nn_cuda': 'three_nn_plain'},
+               'fv2p_torch/ops/csrc/three_nn.cu',
+               'fv2p_tpu/ops/pallas/three_nn.py:124'),
+        Kernel('sa_group', sa_group, {'sa_group_pool_cuda': 'sa_group_pool_plain'},
+               'fv2p_torch/ops/csrc/sa_group.cu',
+               'fv2p_tpu/ops/pallas/sa_group.py:153'),
+    ]
+
+
 def nvidia_smi():
     out = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True,
@@ -786,12 +834,13 @@ def build_inputs():
     return cfg, meta, batch_np, host_s
 
 
-def make_model(cfg, meta, dtype, calibrate_on=None):
+def make_model(cfg, meta, dtype, calibrate_on=None, cls_shift=0.0):
     """The model with seeded weights; with `calibrate_on` (a batch on the
     card) its BatchNorm statistics are set from one forward over it. MGAF
     needs that: with identity statistics its activations shrink layer by
     layer and no heat-map logit clears the score threshold. FV2P keeps
-    identity statistics: its detections survive without them."""
+    identity statistics: its detections survive without them. `cls_shift`
+    is added to the multihead's class-conv biases (``*_cls_out``)."""
     from fv2p_torch.models import build_network
     from fv2p_torch.weights import calibrate_batchnorm_, init_random_
     model = build_network(cfg.MODEL, len(cfg.CLASS_NAMES), cfg.CLASS_NAMES,
@@ -799,6 +848,10 @@ def make_model(cfg, meta, dtype, calibrate_on=None):
     init_random_(model, seed=SEED)
     if calibrate_on is not None:
         calibrate_batchnorm_(model, calibrate_on)
+    with torch.no_grad():
+        for name, m in model.named_modules():
+            if name.endswith('_cls_out'):
+                m.bias.add_(cls_shift)
     return model
 
 
@@ -809,9 +862,11 @@ def forward(model, batch):
 
 
 def check_outputs(out, post, keys):
-    """Detections of the expected shapes, finite, at least one valid; the
-    model's other outputs `keys` finite too."""
-    for key, shape in (('pred_boxes', (BATCH, post, 7)), ('pred_scores', (BATCH, post)),
+    """Detections of the expected shapes (`post` slots a scan; the boxes as
+    wide as the decoded ones: 9 columns with nuScenes' velocities), finite,
+    at least one valid; the model's other outputs `keys` finite too."""
+    box_dim = out['batch_box_preds'].shape[-1] if 'batch_box_preds' in out else 7
+    for key, shape in (('pred_boxes', (BATCH, post, box_dim)), ('pred_scores', (BATCH, post)),
                        ('pred_labels', (BATCH, post)), ('pred_valid', (BATCH, post))):
         if tuple(out[key].shape) != shape:
             fail(f'{key} has shape {tuple(out[key].shape)}, expected {shape}')
@@ -998,11 +1053,11 @@ def mgaf_nms_keeps(kernels, model, out):
 
 
 def f32_forward(kernels, cfg, meta, batch, post, keys, label, compare_keys,
-                calibrate=False):
+                calibrate=False, cls_shift=0.0):
     """The forward in f32 without TF32 through the kernels and through the
     plain versions: identical detections, floats within F32_ATOL."""
     with full_f32():
-        model32 = make_model(cfg, meta, None, batch if calibrate else None)
+        model32 = make_model(cfg, meta, None, batch if calibrate else None, cls_shift)
         out_k = forward(model32, batch)
         with patched(kernels, plain_route):
             out_p = forward(model32, batch)
@@ -2133,6 +2188,7 @@ def device_rulebooks_phase(kernels, rows, cfg, mcfg, meta, batch_np, model, mgaf
 
 SECOND_CFG = REPO / 'tools' / 'cfgs' / 'kitti_models' / 'second.yaml'
 PILLAR_CFG = REPO / 'tools' / 'cfgs' / 'kitti_models' / 'pointpillar.yaml'
+SECOND_MH_CFG = REPO / 'tools' / 'cfgs' / 'kitti_models' / 'second_multihead.yaml'
 
 
 def pillar_batch(points, meta, cap):
@@ -2155,12 +2211,13 @@ def pillar_batch(points, meta, cap):
     return out
 
 
-def zoo_batches(label, zcfg, batch_np, train_np):
-    """(eval batch, train batch) on the card for SECOND (the bench voxels,
-    no tables) or PointPillar (pillars of the same scans' points)."""
+def zoo_batches(zcfg, batch_np, train_np):
+    """(eval batch, train batch) on the card for a SECOND yaml (the bench
+    voxels, no tables) or a PointPillar yaml (pillars of the same scans'
+    points)."""
     from fv2p_torch.datasets import dataset_meta_from_cfg
     from fv2p_torch.utils.synthetic import batch_to_torch
-    if label == 'second':
+    if zcfg.MODEL.VFE.NAME != 'PillarVFE':
         keep = ('voxels', 'voxel_coords', 'voxel_num_points', 'voxel_valid')
         ev = {k: batch_np[k] for k in keep}
         tr = {k: train_np[k] for k in keep + ('gt_boxes',)}
@@ -2173,35 +2230,60 @@ def zoo_batches(label, zcfg, batch_np, train_np):
     return batch_to_torch(ev, 'cuda'), batch_to_torch(tr, 'cuda')
 
 
-def zoo_phase(kernels, rows, label, path, batch_np, train_np):
-    """One zoo yaml at full width: the bf16 forward at batch 4 on the bench
-    scans (median, per module, peak memory, host waits), counted (B1 only)
-    with its calls held against the plain version and timed, the f32
-    forward through the kernels against the plain versions; then train
-    steps at the yaml's batch: an f32 step through the kernels and through
-    the plain versions, 2 + 10 bf16 steps with every loss term finite and
-    the loss falling. Returns the record."""
+def nms_lanes(zcfg):
+    """Detection slots a scan and NMS lanes a scan of a cls-score model:
+    NMS_POST_MAXSIZE slots in one lane, or in one lane a class with
+    MULTI_CLASSES_NMS."""
+    nms = zcfg.MODEL.POST_PROCESSING.NMS_CONFIG
+    lanes = len(zcfg.CLASS_NAMES) if nms.get('MULTI_CLASSES_NMS', False) else 1
+    return lanes * int(nms.NMS_POST_MAXSIZE), lanes
+
+
+def lane_candidates(zcfg, out, shift=0.0):
+    """Anchors above SCORE_THRESH in each (scan, class) lane, with the class
+    logits less `shift`: (B, C) list."""
+    probs = torch.sigmoid(out['batch_cls_preds'].float() - shift)
+    return (probs >= float(zcfg.MODEL.POST_PROCESSING.SCORE_THRESH)).sum(1).tolist()
+
+
+def zoo_phase(kernels, rows, label, zcfg, batch, tbatch, later, cls_shift=0.0):
+    """One cls-score yaml at full width: the bf16 forward at batch 4
+    (median, per module, peak memory, host waits), counted (B1 only) with
+    its calls held against the plain version and timed, the f32 forward
+    through the kernels against the plain versions; then train steps at the
+    yaml's batch: an f32 step through the kernels and through the plain
+    versions, 2 + 10 bf16 steps with every loss term finite, the loss
+    falling and no kernel launched. B1 with its calls is appended to
+    `later` as (label, kernel), for its device time under the profiler at
+    the end; `cls_shift` raises the eval model's class logits
+    (``make_model``). Returns the record."""
     from fv2p_torch.datasets import dataset_meta_from_cfg
     from fv2p_torch.ops import cuda as kcuda
-    zcfg = load_cfg(path)
     meta = dataset_meta_from_cfg(zcfg.DATA_CONFIG, 'test')
-    batch, tbatch = zoo_batches(label, zcfg, batch_np, train_np)
     rec = {'voxels_per_scan': batch['voxel_valid'].sum(1).tolist(),
            'voxel_cap': int(batch['voxel_valid'].shape[1])}
-    model = make_model(zcfg, meta, torch.bfloat16, calibrate_on=batch)
+    model = make_model(zcfg, meta, torch.bfloat16, calibrate_on=batch, cls_shift=cls_shift)
     rec['parameters'] = sum(p.numel() for p in model.parameters())
-    post = int(zcfg.MODEL.POST_PROCESSING.NMS_CONFIG.NMS_POST_MAXSIZE)
+    post, rec['nms_lanes_per_scan'] = nms_lanes(zcfg)
     out, calls, launches = counted_forward(kernels, model, batch, label, ('rotated_iou',))
     rec['valid_detections'] = check_outputs(out, post, ('batch_box_preds', 'batch_cls_preds'))
     rec['launches'] = launches
+    rec['candidates_per_lane'] = lane_candidates(zcfg, out)
+    if cls_shift:
+        rec['candidates_per_lane_unshifted'] = lane_candidates(zcfg, out, cls_shift)
+        log(f'# {label}: anchors above SCORE_THRESH per lane with the class logits '
+            f'{cls_shift} lower: {rec["candidates_per_lane_unshifted"]}')
     log(f'# {label}: {rec["parameters"]} parameters, {rec["valid_detections"]} valid '
         f'detections over {BATCH} scans ({rec["voxels_per_scan"]} voxels of '
-        f'{rec["voxel_cap"]} a scan)')
+        f'{rec["voxel_cap"]} a scan); anchors above SCORE_THRESH per (scan, class) lane: '
+        f'{rec["candidates_per_lane"]}')
     del out
     train_kernel_rows(calls, launches, rows, prefix=label)
+    later.append((label, calls['rotated_iou']))
     rec['f32_kernel_vs_plain_max_abs'] = f32_forward(
         kernels, zcfg, meta, batch, post, ('batch_box_preds', 'batch_cls_preds'), label,
-        ('pred_boxes', 'pred_scores', 'batch_box_preds', 'batch_cls_preds'), calibrate=True)
+        ('pred_boxes', 'pred_scores', 'batch_box_preds', 'batch_cls_preds'), calibrate=True,
+        cls_shift=cls_shift)
     rec.update(forward_stats(model, batch, label))
     rec['host_syncs'], rec['host_sync_sites'] = host_syncs(lambda: forward(model, batch))
     log(f'# {label} host waits in one forward: {rec["host_syncs"]}; by line: '
@@ -2417,6 +2499,225 @@ def kitti_second_phase(kernels, rows):
     return rec
 
 
+# ------------------------------------------------------ nuScenes (CBGS)
+
+NUSC = REPO / 'data' / 'nuscenes'
+NUSC_CFGS = REPO / 'tools' / 'cfgs' / 'nuscenes_models'
+NUSC_SECOND_CFG = NUSC_CFGS / 'cbgs_second_multihead.yaml'
+NUSC_PP_CFG = NUSC_CFGS / 'cbgs_pp_multihead.yaml'
+NUSC_OVERFIT_CFG = NUSC_CFGS / 'cbgs_second_multihead_overfit.yaml'
+# level capacities a scan: the most rows the phase's scans occupy, times
+# this margin, rounded up to a multiple of CAP_ROUND
+CAP_MARGIN, CAP_ROUND = 1.10, 1024
+# the class-logit shift of each CBGS phase's eval model: with BatchNorm
+# calibrated on the batch, cbgs_pp_multihead.yaml's seeded heads leave most
+# (scan, class) NMS lanes under NMS_POST_MAXSIZE candidates above
+# SCORE_THRESH (`candidates_per_lane_unshifted`), so B1 would see lanes of
+# a few boxes; +1.0 fills them
+NUSC_CLS_SHIFT = {'nuscenes': 0.0, 'nuscenes_pp': 1.0}
+# the nuScenes runner's check: capacities that drop rows on the fixture
+NUSC_SMALL_CAPS = {'x_conv2': 20000, 'x_conv3': 12000, 'x_conv4': 6000, 'out': 4000}
+# the nuScenes runner's training: after one epoch (10 steps) the eval-mode
+# BatchNorm statistics are still ~90% their initial ones, the residual
+# trunk's activations grow layer by layer in eval, and most decoded boxes
+# overflow f32; 30 epochs bring the statistics within ~5% of the batches'.
+# It builds its rulebooks on the card: with host tables (4 workers, the
+# yaml's capacities) the loader's wait took most of each step
+NUSC_RUNNER_EPOCHS = 30
+
+
+def check_nuscenes_fixture():
+    need = [NUSC / 'v1.0-trainval' / n for n in (
+        'nuscenes_infos_10sweeps_train.pkl', 'nuscenes_infos_10sweeps_val.pkl',
+        'nuscenes_dbinfos_10sweeps_withvelo.pkl', 'gt_database_10sweeps_withvelo', 'samples')]
+    missing = [str(p.relative_to(REPO)) for p in need if not p.exists()]
+    if missing:
+        fail(f'the nuScenes fixture is missing {missing}: data/nuscenes must go with the copy')
+
+
+def nuscenes_dataset(zcfg, training, seed):
+    """NuScenesDataset of data/nuscenes for one mode, its draws seeded: in
+    training the CBGS-resampled train split (gt sampling and all), in test
+    mode the 2 val scans followed by the 4 train scans."""
+    import pickle
+    from fv2p_torch.datasets import build_dataset
+    ds = build_dataset(zcfg.DATA_CONFIG, zcfg.CLASS_NAMES, training=training,
+                       logger=quiet_logger(), rng=np.random.RandomState(seed))
+    if not training:
+        with open(ds.root_path / zcfg.DATA_CONFIG.INFO_PATH['train'][0], 'rb') as f:
+            ds.infos = ds.infos + pickle.load(f)
+    return ds
+
+
+def nuscenes_batch(zcfg, training, seed):
+    """The first BATCH samples of ``nuscenes_dataset`` on the card. With a
+    sparse trunk, host rulebooks at measured capacities: the samples are
+    built once at capacities no scan reaches and the rows each level holds
+    read, then built again from the same draws at the most rows a level
+    holds times CAP_MARGIN. Returns (batch, record)."""
+    from fv2p_torch.ops.sparse import host_rulebook
+    from fv2p_torch.utils.synthetic import batch_to_torch
+    ds = nuscenes_dataset(zcfg, training, seed)
+    rec = {'scans': [info['token'] for info in ds.infos[:BATCH]]}
+    backbone = zcfg.MODEL.get('BACKBONE_3D')
+    if backbone is not None:
+        state = ds.rng.get_state()
+        roomy = 8 * ds.data_processor.max_voxels
+        ds.set_rulebook_spec(backbone.NAME, caps_override={
+            lvl: roomy for lvl in ('x_conv2', 'x_conv3', 'x_conv4', 'out')})
+        host_rulebook.reset_overflow_stats()
+        for i in range(BATCH):
+            ds[i]
+        occupancy = host_rulebook.get_overflow_stats()['max_active']
+        caps = {lvl: -(-int(CAP_MARGIN * n) // CAP_ROUND) * CAP_ROUND
+                for lvl, n in occupancy.items() if lvl != 'x_conv1'}
+        ds.rng.set_state(state)
+        ds.set_rulebook_spec(backbone.NAME, caps_override=caps)
+        rec.update(level_occupancy=occupancy, level_caps=caps)
+    ds.gt_rows_dropped = 0
+    batch_np = ds.collate_batch([ds[i] for i in range(BATCH)])
+    rec['gt_rows_dropped'] = ds.gt_rows_dropped
+    rec['gt_boxes'] = int((batch_np['gt_boxes'][..., -1] > 0).sum()) if training else None
+    return batch_to_torch(batch_np, 'cuda'), rec
+
+
+def nuscenes_phase(kernels, rows, label, path, later):
+    """A CBGS yaml at full width on the nuScenes fixture (``zoo_phase``):
+    the eval batch is 4 scans through NuScenesDataset in test mode, the
+    train batch the first 4 samples of the CBGS-resampled train split with
+    gt sampling; each level's occupancy beside its capacity, the gt rows
+    past MAX_GT_BOXES. Most (scan, class) NMS lanes must hold more
+    candidates than NMS_POST_MAXSIZE (NUSC_CLS_SHIFT raises the class logits
+    where the seeded heads leave them short)."""
+    zcfg = load_cfg(path)
+    batch, erec = nuscenes_batch(zcfg, False, SEED)
+    tbatch, trec = nuscenes_batch(zcfg, True, SEED + 1)
+    for mode, r in (('test', erec), ('train', trec)):
+        if 'level_caps' in r:
+            log(f'# {label} {mode} batch: rows a level holds at most over its {BATCH} scans '
+                f'{r["level_occupancy"]}, capacities a scan {r["level_caps"]} (x{CAP_MARGIN})')
+    log(f'# {label} train batch: {trec["gt_boxes"]} gt rows, {trec["gt_rows_dropped"]} rows '
+        f'past MAX_GT_BOXES dropped by the dataset, as JAX drops them')
+    rec = zoo_phase(kernels, rows, label, zcfg, batch, tbatch, later, NUSC_CLS_SHIFT[label])
+    rec.update(eval_batch=erec, train_batch_data=trec, cls_shift=NUSC_CLS_SHIFT[label])
+    post = int(zcfg.MODEL.POST_PROCESSING.NMS_CONFIG.NMS_POST_MAXSIZE)
+    full = sum(n > post for lane in rec['candidates_per_lane'] for n in lane)
+    if 2 * full <= BATCH * len(zcfg.CLASS_NAMES):
+        fail(f'{label}: {full} of {BATCH * len(zcfg.CLASS_NAMES)} NMS lanes have more than '
+             f'{post} candidates above SCORE_THRESH; raise NUSC_CLS_SHIFT')
+    del batch, tbatch
+    torch.cuda.empty_cache()
+    return rec
+
+
+def nuscenes_runner_phase(kernels, rows, later):
+    """The runners on data/nuscenes: fv2p_torch.tools.train for
+    NUSC_RUNNER_EPOCHS epochs of cbgs_second_multihead_overfit.yaml (the
+    CBGS-resampled train split at batch 4, the yaml's LEVEL_CAPACITIES with
+    --rulebooks device, 4 spawned workers), counted (no kernel launches); fv2p_torch.tools.test on its checkpoint with the
+    native evaluator, counted (B1 alone, its calls held to the plain
+    version, the `nuscenes_runner_*` keys; B1 appended to `later` as
+    ``zoo_phase`` does), mAP and NDS finite; then the
+    train epoch again with --rulebooks device and NUSC_SMALL_CAPS, which
+    must raise within train.LOG_INTERVAL steps of its first drop and write
+    no checkpoint."""
+    import shutil
+    import yaml
+    from fv2p_torch.ops import cuda as kcuda
+    from fv2p_torch.tools import test as test_runner
+    from fv2p_torch.tools import train as train_runner
+    out = REPO / 'output' / 'chip_smoke' / 'nuscenes_runner'
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    common = ['--cfg_file', str(NUSC_OVERFIT_CFG), '--workers', str(KITTI_WORKERS)]
+    t0 = time.perf_counter()
+    kcuda.reset_launch_counts()
+    run = train_runner.main(common + ['--epochs', str(NUSC_RUNNER_EPOCHS), '--ckpt_save_interval',
+                                      str(NUSC_RUNNER_EPOCHS), '--rulebooks', 'device',
+                                      '--output_dir', str(out / 'run')])
+    sync()
+    train_s = time.perf_counter() - t0
+    train_launches = dict(kcuda.launch_counts)
+    if any(train_launches.values()):
+        fail(f'nuscenes_runner: training launched {train_launches}; its path launches none')
+    steps = run['steps']
+    bad = [(s['it'], k) for s in steps for k, v in s.items() if not np.isfinite(v)]
+    if bad or not steps or any(s['rulebook_dropped'] for s in steps):
+        fail(f'nuscenes_runner: {len(steps)} steps, non-finite terms {bad}, or rows dropped')
+    step_ms = np.array(run['step_s'][1:]) * 1e3
+    wait_ms = np.array(run['loader_wait_s'][1:]) * 1e3
+    cap = copy_kernels(kernels)
+    kcuda.reset_launch_counts()
+    with patched(cap, capturing):
+        ret = test_runner.main(common + [
+            '--ckpt', str(out / 'run' / 'ckpt' / f'checkpoint_epoch_{NUSC_RUNNER_EPOCHS}.pth'),
+            '--output_dir', str(out / 'run')])
+    sync()
+    test_launches = dict(kcuda.launch_counts)
+    for k in cap:
+        if (k.name == 'rotated_iou') != (test_launches[k.name] > 0):
+            fail(f'nuscenes_runner test: kernel {k.name} launched {test_launches[k.name]} '
+                 f'times; the path launches B1 alone')
+        if test_launches[k.name] != len(k.calls):
+            fail(f'nuscenes_runner {k.name}: {test_launches[k.name]} launches, '
+                 f'{len(k.calls)} calls')
+    train_kernel_rows({k.name: k for k in cap}, test_launches, rows, prefix='nuscenes_runner')
+    later.append(('nuscenes_runner', next(k for k in cap if k.name == 'rotated_iou')))
+    del cap
+    if not all(np.isfinite(ret[k]) for k in ('mAP', 'NDS')) or \
+            any(not np.isfinite(v) for v in ret.values()):
+        fail(f'nuscenes_runner: a test result is not finite or missing: {ret}')
+
+    # device rulebooks at capacities that drop rows: the run must stop
+    # within LOG_INTERVAL steps of its first drop, before any checkpoint
+    # (the yaml's _BASE_CONFIG_ paths are relative to tools/, wherever it is)
+    small_d = yaml.safe_load(NUSC_OVERFIT_CFG.read_text())
+    small_d['MODEL']['BACKBONE_3D']['LEVEL_CAPACITIES'] = dict(NUSC_SMALL_CAPS)
+    small_file = out / 'overfit_small_caps.yaml'
+    small_file.write_text(yaml.safe_dump(small_d))
+    steps_run = []
+    orig_step = train_runner.TrainStep.step
+
+    def counted_step(self, batch):
+        out_ = orig_step(self, batch)
+        steps_run.append(int(out_['rulebook_dropped']))
+        return out_
+    train_runner.TrainStep.step = counted_step
+    try:
+        train_runner.main(['--cfg_file', str(small_file), '--workers', str(KITTI_WORKERS),
+                           '--epochs', '1', '--rulebooks', 'device',
+                           '--output_dir', str(out / 'small')])
+        fail('nuscenes_runner: the device-mode run at small capacities did not raise')
+    except RuntimeError as e:
+        raised = str(e)
+    finally:
+        train_runner.TrainStep.step = orig_step
+    first = next((i + 1 for i, d in enumerate(steps_run) if d), None)
+    ckpts = sorted((out / 'small' / 'ckpt').glob('*.pth'))
+    if first is None or len(steps_run) - first >= train_runner.LOG_INTERVAL or ckpts \
+            or 'LEVEL_CAPACITIES' not in raised:
+        fail(f'nuscenes_runner: device overflow: first drop at step {first}, raised after '
+             f'{len(steps_run)} steps (bound {train_runner.LOG_INTERVAL}), checkpoints '
+             f'{ckpts}: {raised}')
+    rec = {'steps': len(steps), 'train_wall_s': train_s, 'train_launches': train_launches,
+           'test_launches': test_launches,
+           'step_ms_median': float(np.median(step_ms)) if step_ms.size else None,
+           'loader_wait_ms_mean': float(wait_ms.mean()) if wait_ms.size else None,
+           'loss': [s['loss'] for s in steps],
+           'test': {k: ret[k] for k in ('sec_per_example', 'loader_wait_s_per_batch',
+                                        'forward_ms_median', 'mAP', 'NDS')},
+           'overflow_check': {'first_drop_step': first, 'steps_run': len(steps_run),
+                              'message': raised}}
+    log(f'# nuscenes_runner: {len(steps)} train steps at batch 4 through the runner '
+        f'({train_s:.1f} s), step median {rec["step_ms_median"]} ms (loader wait '
+        f'{rec["loader_wait_ms_mean"]} ms a step), loss {rec["loss"][0]:.3f} at the first '
+        f'step, {np.mean(rec["loss"][-10:]):.3f} over the last 10; test: '
+        f'{ret["sec_per_example"] * 1e3:.2f} ms a scan, mAP {ret["mAP"]:.4f}, NDS '
+        f'{ret["NDS"]:.4f}; device mode at {NUSC_SMALL_CAPS}: rows dropped from step {first}, '
+        f'raised after step {len(steps_run)}, no checkpoint: {raised}')
+    return rec
+
+
 T_START = time.perf_counter()
 
 
@@ -2428,11 +2729,12 @@ def main():
         log('chip_smoke.py must run from a checkout of the repository')
         return 2
     check_kitti_fixture()
+    check_nuscenes_fixture()
     sys.path.insert(0, str(REPO))
     from fv2p_torch.datasets import dataset_meta_from_cfg
     from fv2p_torch.models.roi_heads.iouguided_roi_head import proposal_layer
     from fv2p_torch.ops import cuda as kcuda
-    from fv2p_torch.ops.cuda import fps, rotated_iou, sa_group, three_nn
+    from fv2p_torch.ops.cuda import fps, rotated_iou
 
     record = {'device': torch.cuda.get_device_name(0),
               'torch': torch.__version__, 'cuda': torch.version.cuda}
@@ -2446,22 +2748,7 @@ def main():
     record['ptxas'] = {n: log_ for n, (_, log_) in built.items()}
     log(f'# built {sorted(built)} in {record["build_s"]:.1f} s')
 
-    kernels = [
-        Kernel('rotated_iou', rotated_iou,
-               {'iou_bev_cuda': 'iou_bev_plain',
-                'iou_bev_upper_cuda': 'iou_bev_upper_plain',
-                'overlap_matrix_cuda': 'overlap_matrix_plain'},
-               'fv2p_torch/ops/csrc/rotated_iou.cu',
-               'fv2p_tpu/ops/pallas/rotated_iou.py:125'),
-        Kernel('fps', fps, {'fps_cuda': 'fps_plain'}, 'fv2p_torch/ops/csrc/fps.cu',
-               'fv2p_tpu/ops/pallas/fps.py:89'),
-        Kernel('three_nn', three_nn, {'three_nn_cuda': 'three_nn_plain'},
-               'fv2p_torch/ops/csrc/three_nn.cu',
-               'fv2p_tpu/ops/pallas/three_nn.py:124'),
-        Kernel('sa_group', sa_group, {'sa_group_pool_cuda': 'sa_group_pool_plain'},
-               'fv2p_torch/ops/csrc/sa_group.cu',
-               'fv2p_tpu/ops/pallas/sa_group.py:153'),
-    ]
+    kernels = kernel_list()
     bounds = {'rotated_iou': bound_rotated_iou, 'fps': bound_fps,
               'three_nn': bound_three_nn, 'sa_group': bound_sa_group}
     by_name = {k.name: k for k in kernels}
@@ -2719,14 +3006,24 @@ def main():
     from fv2p_torch.utils.synthetic import synthetic_batch_np
     zoo_train_np = synthetic_batch_np(meta, BATCH, N_CAP, N_FILL, N_POINTS, seed=SEED + 2,
                                       gt='scan')
-    zrec = {label: zoo_phase(kernels, rows, label, path, batch_np, zoo_train_np)
-            for label, path in (('second', SECOND_CFG), ('pointpillar', PILLAR_CFG))}
+    zrec, b1_later = {}, []
+    for label, path in (('second', SECOND_CFG), ('pointpillar', PILLAR_CFG),
+                        ('second_multihead', SECOND_MH_CFG)):
+        zcfg = load_cfg(path)
+        zrec[label] = zoo_phase(kernels, rows, label, zcfg,
+                                *zoo_batches(zcfg, batch_np, zoo_train_np), b1_later)
     del zoo_train_np
 
     # 9f. the runners with device rulebooks and SECOND on data/kitti
     krec['eval_device'] = kitti_eval_device_phase(kernels, rows, cfg, kmodel, krec['eval'],
                                                   kfirst, kfirst_np)
     krec['second'] = kitti_second_phase(kernels, rows)
+
+    # 9g. the CBGS multihead models at full width on the nuScenes fixture,
+    # eval and train, then the runners on it
+    nrec = {label: nuscenes_phase(kernels, rows, label, path, b1_later)
+            for label, path in (('nuscenes', NUSC_SECOND_CFG), ('nuscenes_pp', NUSC_PP_CFG))}
+    nrec['runner'] = nuscenes_runner_phase(kernels, rows, b1_later)
 
     # 10. under the profiler and the sync debug mode, after every timed pass
     record.update(profile_stats(model, batch, 'fv2p'))
@@ -2753,6 +3050,13 @@ def main():
         k.calls.clear()
     mrec['b1']['device_ms'] = device_ms(
         lambda: [mgaf_b1.launch(a) for a in mgaf_b1.calls], reps=5)
+    # B1 at the cls-score models' call sites (SECOND, PointPillar, the
+    # multihead models and the nuScenes test runner)
+    b1_row = next(row for row in rows if row['name'] == 'rotated_iou')
+    for label, k in b1_later:
+        b1_row[f'{label}_device_ms'] = device_ms(lambda: [k.launch(a) for a in k.calls], reps=5)
+    log('# B1\'s device time (ms) at the cls-score call sites: '
+        f'{ {label: round(b1_row[f"{label}_device_ms"], 4) for label, _ in b1_later} }')
     with torch.no_grad():
         drec['builder_kernels'] = queued_kernels(build_rulebooks)
         drec['builder_device_ms'] = device_ms(build_rulebooks, reps=5)
@@ -2763,7 +3067,7 @@ def main():
         f'B1 on MGAF\'s calls {mrec["b1"]["device_ms"]:.4f}')
     record.update(launches=launches, kernels=rows, nvidia_smi=smi,
                   valid_detections=n_valid, mgaf=mrec, train=trec, mgaf_train=mtrec,
-                  kitti=krec, device_rulebooks=drec, zoo=zrec,
+                  kitti=krec, device_rulebooks=drec, zoo=zrec, nuscenes=nrec,
                   wall_s=time.perf_counter() - T_START)
     log(f'# chip_smoke.py wall time {record["wall_s"]:.1f} s')
 

@@ -38,18 +38,22 @@ def dataset_meta_from_cfg(data_cfg, split='train'):
 
 
 def build_dataset(data_cfg, class_names, root_path=None, training=True,
-                  logger=None):
-    """The dataset named by DATA_CONFIG.DATASET. Only KITTI is ported."""
+                  logger=None, rng=None):
+    """The dataset named by DATA_CONFIG.DATASET (KITTI or nuScenes; Waymo is
+    not ported), drawing its random numbers from ``rng`` (a
+    ``np.random.RandomState``; None: unseeded)."""
     name = data_cfg.get('DATASET', 'KittiDataset')
     if name == 'KittiDataset':
-        from .kitti.kitti_dataset import KittiDataset
-        return KittiDataset(dataset_cfg=data_cfg, class_names=class_names,
-                            root_path=root_path, training=training,
-                            logger=logger)
-    if name in ('WaymoDataset', 'NuScenesDataset'):
+        from .kitti.kitti_dataset import KittiDataset as cls
+    elif name == 'NuScenesDataset':
+        from .nuscenes.nuscenes_dataset import NuScenesDataset as cls
+    elif name == 'WaymoDataset':
         raise NotImplementedError(
             f'{name} is not in fv2p_torch yet (ROADMAP.md, queue A)')
-    raise KeyError(f'unknown dataset: {name}')
+    else:
+        raise KeyError(f'unknown dataset: {name}')
+    return cls(dataset_cfg=data_cfg, class_names=class_names, root_path=root_path,
+               training=training, logger=logger, rng=rng)
 
 
 def collate_to_tensors(collate, batch_list):

@@ -3,9 +3,9 @@ pipeline (augment -> class filter -> encode -> process) and fixed-shape
 batch collation for the model.
 
 Every random draw of the pipeline comes from ``self.rng``, one
-``np.random.RandomState`` per dataset object, in the reference's order of
-calls: a ``RandomState(s)`` gives the draws that ``np.random.seed(s)``
-gives the reference. A loader worker reseeds its copy from the seed torch
+``np.random.RandomState`` per dataset object (given to the constructor, or
+unseeded), in the reference's order of calls: a ``RandomState(s)`` gives
+the draws that ``np.random.seed(s)`` gives the reference. A loader worker reseeds its copy from the seed torch
 hands it (``worker_init_fn``)."""
 from collections import defaultdict
 from pathlib import Path
@@ -38,14 +38,17 @@ def worker_init_fn(worker_id):
 
 class DatasetTemplate:
     def __init__(self, dataset_cfg=None, class_names=None, training=True,
-                 root_path=None, logger=None):
+                 root_path=None, logger=None, rng=None):
         self.dataset_cfg = dataset_cfg
         self.training = training
         self.class_names = class_names
         self.logger = logger
         self.root_path = Path(root_path) if root_path is not None else data_root(
             self.dataset_cfg.DATA_PATH)
-        self.rng = np.random.RandomState()
+        self.rng = rng if rng is not None else np.random.RandomState()
+        # gt rows past MAX_GT_BOXES that prepare_data dropped, as JAX drops
+        # them (counted in this process only, not in loader workers)
+        self.gt_rows_dropped = 0
         if self.dataset_cfg is None or class_names is None:
             return
 
@@ -126,6 +129,7 @@ class DatasetTemplate:
             n = min(gt.shape[0], self.max_gt_boxes)
             out[:n] = gt[:n]
             data_dict['gt_boxes'] = out
+            self.gt_rows_dropped += gt.shape[0] - n
 
         # the raw points, padded, for a model that reads them (FV2P decoder)
         if self.dataset_cfg.get('KEEP_RAW_POINTS', False):

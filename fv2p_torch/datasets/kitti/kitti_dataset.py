@@ -14,9 +14,9 @@ from ..dataset import DatasetTemplate
 
 class KittiDataset(DatasetTemplate):
     def __init__(self, dataset_cfg, class_names, training=True, root_path=None,
-                 logger=None):
+                 logger=None, rng=None):
         super().__init__(dataset_cfg=dataset_cfg, class_names=class_names,
-                         training=training, root_path=root_path, logger=logger)
+                         training=training, root_path=root_path, logger=logger, rng=rng)
         self.split = self.dataset_cfg.DATA_SPLIT[self.mode]
         self.root_split_path = self.root_path / (
             'training' if self.split != 'test' else 'testing')

@@ -4,14 +4,16 @@ and ``DCNBEVBackbone``).
 
 Each level: a k3 conv (stride s, padding 1) + BN + ReLU, then LAYER_NUMS
 more k3 convs; each level is upsampled by a transposed conv (kernel ==
-stride) + BN + ReLU and the ups are concatenated into
-``spatial_features_2d``. With ``USE_DCN`` each upsampling is preceded by a
-modulated deformable conv block + BN + ReLU. The batch dict keeps channels-last (B, H, W, C)
-maps; the convolutions run on NCHW internally. Module names follow the flax
-auto-names (``Conv_0``, ``BatchNorm_0``, ...) so the weight loader maps them
-one to one.
+stride) + BN + ReLU, or for an upsample stride s < 1 downsampled by a conv
+with kernel == stride == round(1 / s) (flax's 'SAME' padding), and the ups
+are concatenated into ``spatial_features_2d``. With ``USE_DCN`` each
+upsampling is preceded by a modulated deformable conv block + BN + ReLU.
+The batch dict keeps channels-last (B, H, W, C) maps; the convolutions run
+on NCHW internally. Module names follow the flax auto-names (``Conv_0``,
+``BatchNorm_0``, ...) so the weight loader maps them one to one.
 """
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 # a module reference, not a name: ops.dcn imports models.layers, and so this
@@ -38,16 +40,27 @@ class _Block(nn.Module):
         return x
 
 
+def same_pad(x, kernel, stride):
+    """Zero-pad an NCHW map as flax's 'SAME' padding does for a conv of this
+    kernel and stride: ceil(n / s) outputs, the odd pixel at the end."""
+    pads = []
+    for n in (x.shape[3], x.shape[2]):
+        total = max((-(-n // stride) - 1) * stride + kernel - n, 0)
+        pads += [total // 2, total - total // 2]
+    return F.pad(x, pads) if any(pads) else x
+
+
 class _Deblock(nn.Module):
     """[dcn -> BatchNorm_0 -> ReLU ->] ConvTranspose_0 -> BN -> ReLU; the
-    flax auto-names shift by one BatchNorm when the DCN block is there."""
+    flax auto-names shift by one BatchNorm when the DCN block is there. A
+    stride s < 1 makes it Conv_0 (kernel == stride == round(1 / s), 'SAME')
+    -> BatchNorm_0 -> ReLU."""
 
     def __init__(self, cin, num_upsample_filters, upsample_stride,
                  use_dcn=False, compute_dtype=None):
         super().__init__()
-        if upsample_stride < 1:
-            raise NotImplementedError('downsampling deblocks (stride < 1)')
         self.use_dcn = use_dcn
+        self.down = upsample_stride < 1
         if use_dcn:
             self.dcn = dcn.MdeformConvBlock(cin, cin, 3, deformable_groups=1,
                                         compute_dtype=compute_dtype)
@@ -55,16 +68,27 @@ class _Deblock(nn.Module):
             self.BatchNorm_1 = BatchNorm(num_upsample_filters, axis=1)
         else:
             self.BatchNorm_0 = BatchNorm(num_upsample_filters, axis=1)
-        self.ConvTranspose_0 = ConvTranspose2d(
-            cin, num_upsample_filters, int(upsample_stride), bias=False,
-            compute_dtype=compute_dtype)
+        if self.down:
+            s = int(round(1 / upsample_stride))
+            self.Conv_0 = Conv2d(cin, num_upsample_filters, s, stride=s, bias=False,
+                                 compute_dtype=compute_dtype)
+        else:
+            self.ConvTranspose_0 = ConvTranspose2d(
+                cin, num_upsample_filters, int(upsample_stride), bias=False,
+                compute_dtype=compute_dtype)
+
+    def _resample(self, x):
+        if self.down:
+            s = self.Conv_0.stride[0]
+            return self.Conv_0(same_pad(x, s, s))
+        return self.ConvTranspose_0(x)
 
     def forward(self, x):
         if not self.use_dcn:
-            return torch.relu(self.BatchNorm_0(self.ConvTranspose_0(x)))
+            return torch.relu(self.BatchNorm_0(self._resample(x)))
         x = self.dcn(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
         x = torch.relu(self.BatchNorm_0(x))
-        return torch.relu(self.BatchNorm_1(self.ConvTranspose_0(x)))
+        return torch.relu(self.BatchNorm_1(self._resample(x)))
 
 
 class BaseBEVBackbone(nn.Module):
@@ -77,7 +101,9 @@ class BaseBEVBackbone(nn.Module):
         upsample_strides = model_cfg.get('UPSAMPLE_STRIDES', [])
         num_up_filters = model_cfg.get('NUM_UPSAMPLE_FILTERS', [])
         if len(upsample_strides) != len(layer_nums):
-            raise NotImplementedError('one upsampling deblock per level')
+            raise NotImplementedError(
+                'one upsampling deblock per level: the extra trailing deblock is '
+                'not in fv2p_torch yet (ROADMAP.md, queue A)')
         self.n_levels = len(layer_nums)
         cin = input_channels
         for i in range(self.n_levels):

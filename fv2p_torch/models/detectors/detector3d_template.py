@@ -1,7 +1,8 @@
 """Config-driven detector assembly (counterpart of
 ``fv2p_tpu/models/detectors/detector3d_template.py``), restricted to the
 detectors and modules ported so far: FV2P, MGAF-3DSSD, SECOND and
-PointPillar, inference and training.
+PointPillar (with the single or the multihead anchor head), inference and
+training.
 
 Each of the 9 slots of the module topology is built iff its config key
 exists, and the forward runs the built slots in that order on one batch
@@ -22,6 +23,7 @@ from ..backbones_3d.spconv_backbone import BACKBONES
 from ..backbones_3d.vfe.mean_vfe import MeanVFE
 from ..backbones_3d.vfe.pillar_vfe import PillarVFE
 from ..dense_heads.anchor_head import AnchorHeadSingle, anchor_head_loss
+from ..dense_heads.anchor_head_multi import AnchorHeadMulti, anchor_head_multi_loss
 from ..dense_heads.center_af_head import CenterAFHeadSingle, center_af_head_loss
 from ..dense_heads.point_head_simple import PointHeadSimple, point_head_loss
 from ..roi_heads.iouguided_roi_head import IoUGuidedRoIHead, roi_head_loss
@@ -40,7 +42,7 @@ _PORTED = {'VFE': ('MeanVFE', 'PillarVFE'),
            'BACKBONE_3D': ('VoxelResBackBone8x', 'VoxelBackBone8x'),
            'MAP_TO_BEV': ('HeightCompression', 'PointPillarScatter'), 'PFE': (),
            'BACKBONE_2D': ('BaseBEVBackbone', 'DCNBEVBackbone'),
-           'DENSE_HEAD': ('AnchorHeadSingle', 'CenterAFHeadSingle'),
+           'DENSE_HEAD': ('AnchorHeadSingle', 'AnchorHeadMulti', 'CenterAFHeadSingle'),
            'POST_PFE': ('ResidualVoxelToPointDecoder',),
            'POINT_HEAD': ('PointHeadSimple',),
            'ROI_HEAD': ('IoUGuidedRoIHead',)}
@@ -63,6 +65,7 @@ class Detector3DTemplate(nn.Module):
         super().__init__()
         self.model_cfg = model_cfg
         self.num_class = num_class
+        self.class_names = list(class_names)
         self.dataset_meta = dataset_meta
         self.compute_dtype = compute_dtype
         for slot in MODULE_TOPOLOGY:
@@ -107,6 +110,10 @@ class Detector3DTemplate(nn.Module):
         if cfg.NAME == 'AnchorHeadSingle':
             return AnchorHeadSingle(cfg, self._bev_out_channels(), self.num_class,
                                     meta['grid_size'], meta['point_cloud_range'])
+        if cfg.NAME == 'AnchorHeadMulti':
+            return AnchorHeadMulti(cfg, self._bev_out_channels(), self.num_class,
+                                   self.class_names, meta['grid_size'],
+                                   meta['point_cloud_range'], self.compute_dtype)
         return CenterAFHeadSingle(cfg, self._bev_out_channels(), self.num_class,
                                   meta['voxel_size'], meta['point_cloud_range'],
                                   self.compute_dtype)
@@ -160,10 +167,11 @@ class Detector3DTemplate(nn.Module):
         SCORE_THRESH, one NMS a scan; with ``MULTI_CLASSES_NMS`` one NMS a
         scan and class, the classes' kept rows concatenated. Fixed-shape
         (B, post_max), or (B, C * post_max), boxes / scores / labels /
-        valid."""
+        valid; the boxes keep every column (nuScenes' velocities), the NMS
+        reads the first 7."""
         pp = self.model_cfg.POST_PROCESSING
         nms_cfg = pp.NMS_CONFIG
-        box_preds = batch_dict['batch_box_preds']              # (B, K, 7)
+        box_preds = batch_dict['batch_box_preds']              # (B, K, 7 + C)
         cls_preds = batch_dict['batch_cls_preds']              # (B, K, C)
         cls_probs = cls_preds if batch_dict.get('cls_preds_normalized', False) \
             else torch.sigmoid(cls_preds)
@@ -247,7 +255,8 @@ DETECTOR_REGISTRY = {'FromVoxelToPoint': FromVoxelToPoint,
 def compute_training_loss(model, batch_dict):
     """The training loss of a train-mode forward's ``batch_dict``: for FV2P
     the RPN, point-head and RCNN losses summed, for MGAF-3DSSD the CenterAF
-    head's eight terms, for SECOND and PointPillar the RPN loss alone.
+    head's eight terms, for SECOND and PointPillar the RPN loss alone (the
+    multihead's own loss with ``AnchorHeadMulti``).
     Returns (loss, terms), every term a 0-d tensor, ``terms['loss']`` the
     total."""
     cfg = model.model_cfg
@@ -256,6 +265,11 @@ def compute_training_loss(model, batch_dict):
         tb['loss'] = rpn_loss
         return rpn_loss, tb
     head = model.dense_head
+    if isinstance(head, AnchorHeadMulti):
+        rpn_loss, tb = anchor_head_multi_loss(cfg.DENSE_HEAD, batch_dict['anchor_head_ret'],
+                                              head.anchors_flat, model.num_class)
+        tb['loss'] = rpn_loss
+        return rpn_loss, tb
     rpn_loss, tb = anchor_head_loss(cfg.DENSE_HEAD, batch_dict['anchor_head_ret'],
                                     head.anchors_flat, model.num_class)
     if isinstance(model, SECONDNet):

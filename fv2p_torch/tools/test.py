@@ -80,12 +80,13 @@ def output_dir_of(cfg, args):
     return REPO_ROOT / 'output' / 'torch' / cfg.EXP_GROUP_PATH / cfg.TAG / args.extra_tag
 
 
-def make_dataset(cfg, training, logger, rulebooks='host'):
-    """The yaml's dataset for one mode. With host rulebooks, and a backbone
-    that reads them, each sample carries its tables at the mode's level
-    capacities; otherwise the samples carry the voxels alone, unsorted."""
+def make_dataset(cfg, training, logger, rulebooks='host', rng=None):
+    """The yaml's dataset for one mode, drawing from ``rng``. With host
+    rulebooks, and a backbone that reads them, each sample carries its
+    tables at the mode's level capacities; otherwise the samples carry the
+    voxels alone, unsorted."""
     dataset = build_dataset(cfg.DATA_CONFIG, class_names=cfg.CLASS_NAMES,
-                            training=training, logger=logger)
+                            training=training, logger=logger, rng=rng)
     backbone = cfg.MODEL.get('BACKBONE_3D')
     if rulebooks == 'host' and backbone is not None and reads_host_tables(backbone.NAME):
         dataset.set_rulebook_spec(cfg.MODEL.BACKBONE_3D.NAME,

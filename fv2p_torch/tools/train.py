@@ -24,6 +24,7 @@ import torch
 
 from ..config import log_config_to_file
 from ..datasets import build_dataloader, prefetch
+from ..models.backbones_3d.spconv_backbone import LEVELS
 from ..ops.sparse import host_rulebook
 from ..train_utils.train_state import TrainStep
 from ..utils import common_utils
@@ -32,7 +33,7 @@ from . import test as test_runner
 from .eval_utils import eval_one_epoch
 
 FIXED_SEED = 666
-LOG_INTERVAL = 50                 # steps between loss lines in the log
+LOG_INTERVAL = 50                 # steps between loss lines and overflow checks
 
 
 def parse_config(argv=None):
@@ -55,17 +56,23 @@ def parse_config(argv=None):
     return args, test_runner.load_config(args)
 
 
-def check_device_overflow(table, names, epoch):
-    """Raise if a step's device rulebooks dropped sparse rows at a level's
-    capacity (``rulebook_dropped`` of the epoch's loss table), as the host
-    builder raises at an overflow."""
-    if 'rulebook_dropped' not in names:
+def check_device_overflow(trainer, epoch, it):
+    """Raise if the device rulebooks have dropped sparse rows at a level's
+    capacity in any step so far (``TrainStep.dropped_rows``, one read from
+    the device), naming each level and the yaml key to raise, as the host
+    builder raises at its first overflow. The train loop calls it every
+    LOG_INTERVAL steps and before each checkpoint, so a run raises within
+    LOG_INTERVAL steps of the first step that drops a row and writes no
+    checkpoint after it."""
+    if trainer.dropped_rows is None:
         return
-    dropped = table[:, names.index('rulebook_dropped')]
-    if (dropped > 0).any():
+    dropped = trainer.dropped_rows.tolist()
+    if any(dropped):
+        over = {lvl: int(n) for lvl, n in zip(LEVELS[1:], dropped) if n}
+        keys = ', '.join(f'MODEL.BACKBONE_3D.LEVEL_CAPACITIES.{lvl}' for lvl in over)
         raise RuntimeError(
-            'device rulebooks: a level capacity dropped %d sparse rows in epoch %d '
-            '(raise MODEL.BACKBONE_3D.LEVEL_CAPACITIES)' % (int(dropped.sum()), epoch + 1))
+            f'device rulebooks: level capacities dropped sparse rows {over} by step '
+            f'{it} (epoch {epoch + 1}); raise {keys}')
 
 
 def save_checkpoint(trainer, epoch, ckpt_dir):
@@ -112,10 +119,9 @@ def main(argv=None, on_resume=None):
     logger.info('**********************Start logging**********************')
     log_config_to_file(cfg, logger=logger)
 
-    train_set = test_runner.make_dataset(cfg, training=True, logger=logger,
-                                         rulebooks=args.rulebooks)
-    if args.fix_random_seed:
-        train_set.rng = np.random.RandomState(FIXED_SEED)
+    train_set = test_runner.make_dataset(
+        cfg, training=True, logger=logger, rulebooks=args.rulebooks,
+        rng=np.random.RandomState(FIXED_SEED) if args.fix_random_seed else None)
     loader = build_dataloader(train_set, batch_size, args.workers, training=True,
                               pin_memory=args.device == 'cuda')
     steps_per_epoch = len(loader)
@@ -148,11 +154,13 @@ def main(argv=None, on_resume=None):
                 record['step_s'].append(now - t_prev)
                 record['loader_wait_s'].append(wait)
                 t_prev = now
+                if len(terms) % LOG_INTERVAL == 0:
+                    check_device_overflow(trainer, epoch, epoch * steps_per_epoch + len(terms))
+            check_device_overflow(trainer, epoch, epoch * steps_per_epoch + len(terms))
             # one read of the epoch's loss terms from the device
             names = sorted(terms[0])
             table = torch.stack([torch.stack([m[k].float() for k in names])
                                  for m in terms]).cpu().numpy()
-            check_device_overflow(table, names, epoch)
             for i, row in enumerate(table):
                 line = dict(zip(names, (float(x) for x in row)),
                             epoch=epoch, it=epoch * steps_per_epoch + i + 1)

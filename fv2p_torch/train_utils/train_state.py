@@ -31,12 +31,16 @@ class TrainStep:
     phases are also callable one by one (``forward_loss``, ``backward``,
     ``update``), so that a caller can time them. With device rulebooks the
     metrics also hold ``rulebook_dropped``, the sparse rows the levels'
-    capacities dropped (the caller reads it with the rest and raises)."""
+    capacities dropped in the step, and ``dropped_rows`` keeps their running
+    sum per level (x_conv2, x_conv3, x_conv4, out) on the device, which a
+    caller reads now and then (``tools/train.py``) to raise without a host
+    read a step."""
 
     def __init__(self, model, optim_cfg, total_steps):
         self.model = model.train()
         self.optimizer = build_optimizer(model.parameters(), optim_cfg, total_steps)
         self.device = next(model.parameters()).device
+        self.dropped_rows = None
 
     @property
     def step_count(self):
@@ -65,5 +69,8 @@ class TrainStep:
         metrics = {k: v.detach() for k, v in terms.items()}
         metrics['grad_norm'] = grad_norm
         if 'rulebook_overflow' in out:
-            metrics['rulebook_dropped'] = out['rulebook_overflow'].sum()
+            dropped = out['rulebook_overflow']
+            metrics['rulebook_dropped'] = dropped.sum()
+            self.dropped_rows = dropped if self.dropped_rows is None \
+                else self.dropped_rows + dropped
         return metrics

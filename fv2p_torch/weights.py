@@ -22,9 +22,10 @@ gets its (1, 1, I, O) kernel back).
 
 ``init_random_(model, seed)`` draws weights from a ``torch.Generator``: the
 same initialisers as the flax modules (LeCun normal kernels, zero biases,
-identity BatchNorm). The deformable blocks' offset convs are drawn like
-every other conv, not zeroed as flax does: zero offsets would make a DCN a
-plain conv. ``calibrate_batchnorm_(model, batch)`` then sets the BatchNorm
+identity BatchNorm; the anchor heads' class convs, ``conv_cls`` and the
+multihead's ``h{i}_cls_out``, start at bias -log 99). The deformable
+blocks' offset convs are drawn like every other conv, not zeroed as flax
+does: zero offsets would make a DCN a plain conv. ``calibrate_batchnorm_(model, batch)`` then sets the BatchNorm
 statistics from one forward, so that deep models keep unit-scale
 activations.
 """
@@ -169,7 +170,8 @@ def init_random_(model, seed=0):
         std = 0.001 if name.endswith('conv_box') else 1.0 / math.sqrt(fan_in)
         w.copy_(torch.randn(w.shape, generator=gen) * std)
         if getattr(module, 'bias', None) is not None:
-            module.bias.fill_(-math.log(99.0) if name.endswith('conv_cls') else 0.0)
+            cls_out = name.endswith('conv_cls') or name.endswith('_cls_out')
+            module.bias.fill_(-math.log(99.0) if cls_out else 0.0)
     return model
 
 

@@ -47,7 +47,7 @@ def _imported_roots(path):
 @pytest.mark.parametrize('path', sorted(
     [p.relative_to(REPO) for p in (REPO / 'fv2p_torch').rglob('*.py')]
     + [Path('chip_smoke.py'), Path('tools/torch_kernel_variants.py'),
-       Path('tools/torch_gate_probe.py')]), ids=str)
+       Path('tools/torch_gate_probe.py'), Path('tools/torch_bn_probe.py')]), ids=str)
 def test_port_imports_no_jax(path):
     bad = sorted({m for m in _imported_roots(REPO / path) if m in FORBIDDEN})
     assert not bad, f'{path} imports {bad}'

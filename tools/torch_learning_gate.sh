@@ -1,29 +1,58 @@
 #!/usr/bin/env bash
-# The FV2P learning gate through the PyTorch port's runners, on one CUDA card:
-# train tools/cfgs/kitti_models/FV2P/fv2p_overfit.yaml on the committed KITTI
-# fixture (data/kitti, 32 train scans; 200 epochs of 16 steps, a checkpoint
-# every 25), then score the checkpoints of epochs 175 and 200 on the 24 val
-# scans with the official KITTI AP.
+# The learning gates through the PyTorch port's runners, on one CUDA card.
 #
-#     bash tools/torch_learning_gate.sh [EPOCHS_TO_SCORE...]
+#     bash tools/torch_learning_gate.sh [fv2p|nuscenes] [EPOCHS_TO_SCORE...]
 #
-# Checkpoints stay under output/torch/kitti_models/FV2P/fv2p_overfit/gate/;
-# the loss of every step (metrics.jsonl), the eval results (result.json per
-# checkpoint) and the card's name and power limit go to chiprun_out/gate/.
-# A strict level-capacity overflow on an augmented scan stops a train run;
-# the script then starts the runner again, which resumes from the newest
-# checkpoint (at most 3 starts).
+# fv2p (the default): train tools/cfgs/kitti_models/FV2P/fv2p_overfit.yaml on
+# the committed KITTI fixture (data/kitti, 32 train scans; 200 epochs of 16
+# steps, a checkpoint every 25), then score the checkpoints of epochs 175 and
+# 200 on the 24 val scans with the official KITTI AP.
+#
+# nuscenes: train tools/cfgs/nuscenes_models/cbgs_second_multihead_overfit.yaml
+# on the committed nuScenes fixture (data/nuscenes: the CBGS-resampled train
+# split, 40 samples, 10 steps an epoch; the yaml's 120-epoch schedule, a
+# checkpoint every 40, the rulebooks built on the card), then score the
+# checkpoint of epoch 80 on the 2 val scans with the native nuScenes metrics
+# (mAP, NDS), as the JAX package's gate did
+# (artifacts/learning_gate/PROVENANCE.md).
+#
+# Checkpoints stay under output/torch/<group>/<yaml>/gate/; the loss of every
+# step (metrics.jsonl), the eval results (result.json per checkpoint) and the
+# card's name and power limit go to chiprun_out/gate/ (fv2p) or
+# chiprun_out/gate_nuscenes/. A strict level-capacity overflow on an augmented
+# scan stops a train run; the script then starts the runner again, which
+# resumes from the newest checkpoint (at most 3 starts).
 set -euo pipefail
 cd "$(dirname "$0")/.."
-CFG=tools/cfgs/kitti_models/FV2P/fv2p_overfit.yaml
-RUN=output/torch/kitti_models/FV2P/fv2p_overfit/gate
-OUT=chiprun_out/gate
-EPOCHS="${*:-175 200}"
+GATE=fv2p
+if [ "${1:-}" = fv2p ] || [ "${1:-}" = nuscenes ]; then
+  GATE=$1
+  shift
+fi
+if [ "$GATE" = nuscenes ]; then
+  CFG=tools/cfgs/nuscenes_models/cbgs_second_multihead_overfit.yaml
+  RUN=output/torch/nuscenes_models/cbgs_second_multihead_overfit/gate
+  OUT=chiprun_out/gate_nuscenes
+  EPOCHS="${*:-80}"
+  INTERVAL=40
+  SCORES='recall_rcnn_0.3|sec_per_example|^.*(mAP|NDS): '
+  # rulebooks built on the card: with host tables the loader's wait takes
+  # most of each step
+  TRAIN_EXTRA="--rulebooks device"
+else
+  CFG=tools/cfgs/kitti_models/FV2P/fv2p_overfit.yaml
+  RUN=output/torch/kitti_models/FV2P/fv2p_overfit/gate
+  OUT=chiprun_out/gate
+  EPOCHS="${*:-175 200}"
+  INTERVAL=25
+  SCORES='recall_rcnn_0.3|sec_per_example|3d   AP'
+  TRAIN_EXTRA=""
+fi
 mkdir -p "$OUT"
 nvidia-smi --query-gpu=name,power.limit --format=csv,noheader | tee "$OUT/card.txt"
 for attempt in 1 2 3; do
   if python3 -m fv2p_torch.tools.train --cfg_file "$CFG" --extra_tag gate \
-      --ckpt_save_interval 25 --workers 4 --fix_random_seed \
+      --ckpt_save_interval "$INTERVAL" --workers 4 --fix_random_seed $TRAIN_EXTRA \
       >> "$OUT/train_log.txt" 2>&1; then
     break
   fi
@@ -35,5 +64,5 @@ for e in $EPOCHS; do
   python3 -m fv2p_torch.tools.test --cfg_file "$CFG" --extra_tag gate --workers 4 \
       --ckpt "$RUN/ckpt/checkpoint_epoch_$e.pth" --output_dir "$OUT/eval_$e" \
       > "$OUT/eval_$e.log" 2>&1
-  grep -E 'recall_rcnn_0.3|sec_per_example|3d   AP' "$OUT/eval_$e.log" | head -6 || true
+  grep -E "$SCORES" "$OUT/eval_$e.log" | head -6 || true
 done
