@@ -176,7 +176,7 @@ SCORE_THRESH are counted per (scan, class) NMS lane.
     x 40 grid, 10 classes, 6 heads with separate regression, 9-dim boxes.
   * nuscenes_pp: nuscenes_models/cbgs_pp_multihead.yaml on pillars of the
     same scans (its first BEV level downsampled by a strided conv).
-  * nuscenes_runner: fv2p_torch.tools.train for 30 epochs of 10 steps of
+  * nuscenes_runner: fv2p_torch.tools.train for 20 epochs of 10 steps of
     cbgs_second_multihead_overfit.yaml (the yaml's LEVEL_CAPACITIES, device
     rulebooks, nothing dropped; no kernel launches; after one epoch the eval-mode BatchNorm statistics
     still lag and the decoded boxes overflow), then fv2p_torch.tools.test
@@ -186,6 +186,36 @@ SCORE_THRESH are counted per (scan, class) NMS lane.
     with --rulebooks device at NUSC_SMALL_CAPS, which must raise within
     train.LOG_INTERVAL steps of its first dropped row and write no
     checkpoint.
+
+Then the RoI-grid models, after the nuScenes phases:
+
+  * pv_rcnn: kitti_models/pv_rcnn.yaml at full width in bf16, batch 4, on
+    the bench batch (voxels and each scan's 18000 raw points; the backbone
+    builds its rulebooks in the forward), BatchNorm calibrated on the
+    batch. Counted: B2 once a forward (2048 keypoints), B1 at least twice a
+    scan (proposal NMS 1024 -> 100 at 0.7, final NMS), B3 and B4 never;
+    every call held to its plain version and timed (`pv_rcnn_*` keys), the
+    proposal and final NMS keeps identical on both routes, the f32 forward
+    through the kernels against the plain versions; the forward's median,
+    per module and VSA by part (FPS, each source's grouping), peak memory,
+    host waits, and each ball-query call alone: its time, its temporaries
+    (at most BALL_QUERY_GIB) and its share of non-empty balls. Then train
+    steps at the yaml's batch 4 on 24000-point scans with the six cars of
+    each scan (B2's 24576-point instantiation): an f32 step through the
+    kernels and through the plain versions (FPS picks, proposal keeps and
+    sampled RoIs identical; loss terms and gradients as FV2P's), 2 + 10 bf16
+    steps (B2 once and B1 on every step, every loss term finite, no rows
+    dropped), one more with each ball-query call alone (at most
+    BALL_QUERY_GIB), one more whose calls are held to the plain versions
+    (`pv_rcnn_train_*` keys).
+  * voxel_rcnn: kitti_models/voxel_rcnn/voxel_rcnn_car.yaml the same way:
+    B1 only, the grid's ball queries over x_conv3 and x_conv4 timed alone.
+  * kitti_pv_rcnn: fv2p_torch.tools.train for one epoch of pv_rcnn_car.yaml
+    on data/kitti (8 steps at batch 4, --rulebooks device at fv2p.yaml's
+    train level capacities, the peak learning rate at KITTI_TRAIN_LR),
+    then fv2p_torch.tools.test on its checkpoint over the 24 val scans;
+    both counted (B1 and B2), the test run's calls held to the plain
+    versions (`kitti_pv_rcnn_*` keys), the AP dict produced.
 
 The earlier paths keep their repetitions: the whole script stays within
 half its time limit without a cut.
@@ -277,16 +307,21 @@ def device_ms(fn, reps=5):
     """Mean ms the card is busy in one fn(): the kernels' and copies' own
     durations under torch.profiler. Unlike events around the calls, this
     leaves out the gaps in which the card waits for the host to queue, which
-    decide the event time of a few short launches."""
+    decide the event time of a few short launches. A profile that records
+    no device time at all is taken again, up to twice: some profiles of the
+    same calls that others time at 0.1-7 ms have come back empty."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     sync()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        sync()
-    busy_us = sum(e.device_time for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA)
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            sync()
+        busy_us = sum(e.device_time for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA)
+        if busy_us > 0:
+            break
     return busy_us / 1e3 / reps
 
 
@@ -2298,8 +2333,8 @@ def zoo_phase(kernels, rows, label, zcfg, batch, tbatch, later, cls_shift=0.0):
              f'{rec["train_batch"]}')
     with full_f32():
         step = make_train_step(zcfg, tmeta, None)
-        tk, tg = _zoo_f32_step(step, tbatch, None)
-        tp, gp = _zoo_f32_step(step, tbatch, kernels)
+        tk, tg, _ = _zoo_f32_step(step, tbatch, None)
+        tp, gp, _ = _zoo_f32_step(step, tbatch, kernels)
     rec['f32_kernel_vs_plain'] = compare_train_steps(f'{label} f32 step', tk, tp, tg, gp)
     del step
     torch.cuda.empty_cache()
@@ -2322,18 +2357,19 @@ def zoo_phase(kernels, rows, label, zcfg, batch, tbatch, later, cls_shift=0.0):
 
 
 def _zoo_f32_step(step, batch, kernels):
-    """Loss terms and gradients of one f32 step, through the plain versions
-    when `kernels` is given; the weights are left as they were."""
+    """Loss terms, gradients and the forward's batch dict of one f32 step,
+    through the plain versions when `kernels` is given; the weights are
+    left as they were."""
     import copy
     state = copy.deepcopy(step.model.state_dict())
     with contextlib.ExitStack() as stack:
         if kernels is not None:
             stack.enter_context(patched(kernels, plain_route))
-        loss, terms, _ = step.forward_loss(batch)
+        loss, terms, out = step.forward_loss(batch)
         step.backward(loss)
     sync()
     step.model.load_state_dict(state)
-    return {k: float(v.detach()) for k, v in terms.items()}, _grads(step.model)
+    return {k: float(v.detach()) for k, v in terms.items()}, _grads(step.model), out
 
 
 def kitti_eval_device_phase(kernels, rows, cfg, model, host_rec, host_first, host_first_np):
@@ -2411,6 +2447,30 @@ def kitti_eval_device_phase(kernels, rows, cfg, model, host_rec, host_first, hos
     return rec
 
 
+def counted_test_run(kernels, rows, label, argv, launched):
+    """``fv2p_torch.tools.test.main(argv)`` with the counts set to 0 just
+    before and read just after, every kernel call captured: each kernel in
+    `launched` must launch, no other; the calls are held against the plain
+    versions and timed (the `label`_* keys of `rows`). Returns (the result
+    dict, the launches, the kernels with their calls)."""
+    from fv2p_torch.ops import cuda as kcuda
+    from fv2p_torch.tools import test as test_runner
+    cap = copy_kernels(kernels)
+    kcuda.reset_launch_counts()
+    with patched(cap, capturing):
+        ret = test_runner.main(argv)
+    sync()
+    launches = dict(kcuda.launch_counts)
+    for k in cap:
+        if (k.name in launched) != (launches[k.name] > 0):
+            fail(f'{label} test: kernel {k.name} launched {launches[k.name]} times; the '
+                 f'path launches {sorted(launched)}')
+        if launches[k.name] != len(k.calls):
+            fail(f'{label} {k.name}: {launches[k.name]} launches, {len(k.calls)} calls')
+    train_kernel_rows({k.name: k for k in cap}, launches, rows, prefix=label)
+    return ret, launches, cap
+
+
 def kitti_second_phase(kernels, rows):
     """fv2p_torch.tools.train for one epoch of second.yaml on data/kitti's
     32 train scans (Car and Pedestrian: the fixture has no Cyclist; the
@@ -2423,7 +2483,6 @@ def kitti_second_phase(kernels, rows):
     import shutil
     import yaml
     from fv2p_torch.ops import cuda as kcuda
-    from fv2p_torch.tools import test as test_runner
     from fv2p_torch.tools import train as train_runner
     out = REPO / 'output' / 'chip_smoke' / 'kitti_second'
     shutil.rmtree(out, ignore_errors=True)
@@ -2465,21 +2524,8 @@ def kitti_second_phase(kernels, rows):
     step_ms = np.array(run['step_s'][1:]) * 1e3
     wait_ms = np.array(run['loader_wait_s'][1:]) * 1e3
     ckpt = out / 'ckpt' / 'checkpoint_epoch_1.pth'
-    cap = copy_kernels(kernels)
-    kcuda.reset_launch_counts()
-    with patched(cap, capturing):
-        ret = test_runner.main(common + ['--ckpt', str(ckpt)])
-    sync()
-    test_launches = dict(kcuda.launch_counts)
-    for k in cap:
-        if (k.name == 'rotated_iou') != (test_launches[k.name] > 0):
-            fail(f'kitti_second test: kernel {k.name} launched {test_launches[k.name]} '
-                 f'times; the path launches B1 alone')
-        if test_launches[k.name] != len(k.calls):
-            fail(f'kitti_second {k.name}: {test_launches[k.name]} launches, '
-                 f'{len(k.calls)} calls')
-    train_kernel_rows({k.name: k for k in cap}, test_launches, rows, prefix='kitti_second')
-    del cap
+    ret, test_launches, _ = counted_test_run(kernels, rows, 'kitti_second',
+                                             common + ['--ckpt', str(ckpt)], ('rotated_iou',))
     if any(not np.isfinite(v) for v in ret.values()):
         fail(f'kitti_second: a test result is not finite: {ret}')
     rec = {'steps': len(steps), 'train_wall_s': train_s, 'train_launches': train_launches,
@@ -2520,10 +2566,11 @@ NUSC_SMALL_CAPS = {'x_conv2': 20000, 'x_conv3': 12000, 'x_conv4': 6000, 'out': 4
 # the nuScenes runner's training: after one epoch (10 steps) the eval-mode
 # BatchNorm statistics are still ~90% their initial ones, the residual
 # trunk's activations grow layer by layer in eval, and most decoded boxes
-# overflow f32; 30 epochs bring the statistics within ~5% of the batches'.
+# overflow f32; 20 epochs leave 0.99^200 = 13% of the initial statistics
+# (30, 5%, took ~130 s of the script, cut to keep it near 660 s).
 # It builds its rulebooks on the card: with host tables (4 workers, the
 # yaml's capacities) the loader's wait took most of each step
-NUSC_RUNNER_EPOCHS = 30
+NUSC_RUNNER_EPOCHS = 20
 
 
 def check_nuscenes_fixture():
@@ -2624,7 +2671,6 @@ def nuscenes_runner_phase(kernels, rows, later):
     import shutil
     import yaml
     from fv2p_torch.ops import cuda as kcuda
-    from fv2p_torch.tools import test as test_runner
     from fv2p_torch.tools import train as train_runner
     out = REPO / 'output' / 'chip_smoke' / 'nuscenes_runner'
     shutil.rmtree(out, ignore_errors=True)
@@ -2646,22 +2692,9 @@ def nuscenes_runner_phase(kernels, rows, later):
         fail(f'nuscenes_runner: {len(steps)} steps, non-finite terms {bad}, or rows dropped')
     step_ms = np.array(run['step_s'][1:]) * 1e3
     wait_ms = np.array(run['loader_wait_s'][1:]) * 1e3
-    cap = copy_kernels(kernels)
-    kcuda.reset_launch_counts()
-    with patched(cap, capturing):
-        ret = test_runner.main(common + [
-            '--ckpt', str(out / 'run' / 'ckpt' / f'checkpoint_epoch_{NUSC_RUNNER_EPOCHS}.pth'),
-            '--output_dir', str(out / 'run')])
-    sync()
-    test_launches = dict(kcuda.launch_counts)
-    for k in cap:
-        if (k.name == 'rotated_iou') != (test_launches[k.name] > 0):
-            fail(f'nuscenes_runner test: kernel {k.name} launched {test_launches[k.name]} '
-                 f'times; the path launches B1 alone')
-        if test_launches[k.name] != len(k.calls):
-            fail(f'nuscenes_runner {k.name}: {test_launches[k.name]} launches, '
-                 f'{len(k.calls)} calls')
-    train_kernel_rows({k.name: k for k in cap}, test_launches, rows, prefix='nuscenes_runner')
+    ret, test_launches, cap = counted_test_run(kernels, rows, 'nuscenes_runner', common + [
+        '--ckpt', str(out / 'run' / 'ckpt' / f'checkpoint_epoch_{NUSC_RUNNER_EPOCHS}.pth'),
+        '--output_dir', str(out / 'run')], ('rotated_iou',))
     later.append(('nuscenes_runner', next(k for k in cap if k.name == 'rotated_iou')))
     del cap
     if not all(np.isfinite(ret[k]) for k in ('mAP', 'NDS')) or \
@@ -2715,6 +2748,388 @@ def nuscenes_runner_phase(kernels, rows, later):
         f'{ret["sec_per_example"] * 1e3:.2f} ms a scan, mAP {ret["mAP"]:.4f}, NDS '
         f'{ret["NDS"]:.4f}; device mode at {NUSC_SMALL_CAPS}: rows dropped from step {first}, '
         f'raised after step {len(steps_run)}, no checkpoint: {raised}')
+    return rec
+
+
+# ------------------------------------------- RoI-grid models (PV-RCNN, Voxel R-CNN)
+
+PV_RCNN_CFG = REPO / 'tools' / 'cfgs' / 'kitti_models' / 'pv_rcnn.yaml'
+PV_RCNN_CAR_CFG = REPO / 'tools' / 'cfgs' / 'kitti_models' / 'pv_rcnn_car.yaml'
+VOXEL_RCNN_CFG = REPO / 'tools' / 'cfgs' / 'kitti_models' / 'voxel_rcnn' / 'voxel_rcnn_car.yaml'
+# each path's yaml and the kernels it launches
+GRID_PATHS = {'pv_rcnn': (PV_RCNN_CFG, ('rotated_iou', 'fps')),
+              'voxel_rcnn': (VOXEL_RCNN_CFG, ('rotated_iou',))}
+# the most temporaries one ball-query call may hold beyond its inputs and
+# outputs at the bench batch (pointops.BALL_QUERY_PAIRS bounds them)
+BALL_QUERY_GIB = 1.0
+
+
+def grid_sources(model):
+    """The ball-query calls of one forward of a RoI-grid model, in order:
+    VSA's raw points and sparse levels, then the RoI grid (PV-RCNN), or
+    the grid's sparse levels (Voxel R-CNN)."""
+    if hasattr(model, 'pfe'):
+        return ['raw_points'] + list(model.pfe.levels) + ['roi_grid']
+    return [f'roi_grid_{s}' for s in model.roi_head.sources]
+
+
+@contextlib.contextmanager
+def ball_query_probe(records):
+    """Each ``pointops.ball_query_rows`` call timed alone (CUDA events, the
+    card synchronised around it), with its peak memory beyond its inputs
+    and outputs, and the share of non-empty balls per radius."""
+    from fv2p_torch.ops import pointops
+    orig = pointops.ball_query_rows
+
+    def probe(new_xyz, xyz, valid, bounds, radii, nsamples, **kw):
+        sync()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = orig(new_xyz, xyz, valid, bounds, radii, nsamples, **kw)
+        ev[1].record()
+        sync()
+        out_bytes = sum(o.numel() * o.element_size() for o in out)
+        records.append({
+            'queries': list(new_xyz.shape[:2]), 'source_rows': int(xyz.shape[0]),
+            'radii': list(radii), 'nsamples': list(nsamples), 'ms': ev[0].elapsed_time(ev[1]),
+            'temp_gib': (torch.cuda.max_memory_allocated() - base - out_bytes) / 2 ** 30,
+            'nonempty_share': [float((o[..., 0] >= 0).float().mean()) for o in out]})
+        return out
+
+    pointops.ball_query_rows = probe
+    try:
+        yield
+    finally:
+        pointops.ball_query_rows = orig
+
+
+def ball_query_stats(model, run, label):
+    """One run() (a forward or a train step of `model`) under
+    ``ball_query_probe``, each call named by its source; every call within
+    BALL_QUERY_GIB, and balls fed at every source."""
+    records = []
+    with ball_query_probe(records):
+        run()
+    names = grid_sources(model)
+    if len(records) != len(names):
+        fail(f'{label}: {len(records)} ball-query calls, expected {len(names)} ({names})')
+    out = dict(zip(names, records))
+    worst = max(r['temp_gib'] for r in records)
+    if worst > BALL_QUERY_GIB:
+        fail(f'{label}: a ball-query call holds {worst:.3f} GiB of temporaries > '
+             f'{BALL_QUERY_GIB}')
+    if min(min(r['nonempty_share']) for r in records) <= 0.0:
+        fail(f'{label}: a source leaves every ball empty: '
+             f'{ {n: r["nonempty_share"] for n, r in out.items()} }')
+    log(f'# {label} ball queries (ms each, alone; peak temporaries GiB; non-empty balls per '
+        f'radius): ' + '; '.join(
+            f'{n} {r["ms"]:.2f} ms, {r["temp_gib"]:.3f} GiB, '
+            f'{[round(x, 3) for x in r["nonempty_share"]]} '
+            f'({r["queries"][1]} queries a scan, {r["source_rows"]} rows)'
+            for n, r in out.items()))
+    return out
+
+
+def pfe_times(model, batch):
+    """ms of VSA's parts in one forward (CUDA events, median of
+    MODULE_REPS): FPS, each source's grouping and the fusion; `other`
+    is the rest of the module (the BEV sampling, the bounds' host read)."""
+    from fv2p_torch.ops import pointops
+    pfe = model.pfe
+    parts = {n: m for n, m in pfe.named_children()}
+    passes = []
+    for _ in range(MODULE_REPS):
+        events = {n: [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                  for n in ['pfe', 'fps'] + list(parts)}
+        handles = [pfe.register_forward_pre_hook(lambda m, a: events['pfe'][0].record()),
+                   pfe.register_forward_hook(lambda m, a, o: events['pfe'][1].record())]
+        for n, m in parts.items():
+            handles.append(m.register_forward_pre_hook(
+                lambda m_, a, e=events[n]: e[0].record()))
+            handles.append(m.register_forward_hook(
+                lambda m_, a, o, e=events[n]: e[1].record()))
+        fps_fn = pointops.farthest_point_sample_batch
+
+        def timed_fps(*a):
+            events['fps'][0].record()
+            out = fps_fn(*a)
+            events['fps'][1].record()
+            return out
+        pointops.farthest_point_sample_batch = timed_fps
+        try:
+            sync()
+            forward(model, batch)
+            sync()
+        finally:
+            pointops.farthest_point_sample_batch = fps_fn
+            for h in handles:
+                h.remove()
+        ms = {n: e[0].elapsed_time(e[1]) for n, e in events.items()}
+        ms['fusion'] = ms.pop('fusion_fc') + ms.pop('fusion_bn')
+        ms['other'] = ms['pfe'] - sum(v for k, v in ms.items() if k != 'pfe')
+        passes.append(ms)
+    return {k: float(np.median([p[k] for p in passes])) for k in passes[0]}
+
+
+def grid_nms_keeps(kernels, model, label, head_io, out):
+    """The proposal NMS (the RoI head's TEST config on the dense head's
+    predictions) and the final cls-score NMS through B1 and through its
+    plain version: the keep lists must be identical."""
+    from fv2p_torch.models.roi_heads.iouguided_roi_head import proposal_layer
+    nms_cfg = model.model_cfg.ROI_HEAD.NMS_CONFIG.TEST
+    final_in = {k: out[k] for k in ('batch_box_preds', 'batch_cls_preds',
+                                    'cls_preds_normalized')}
+    ker = (proposal_layer(head_io['box'], head_io['cls'], nms_cfg),
+           model.post_processing(dict(final_in)))
+    with patched(kernels, plain_route):
+        pln = (proposal_layer(head_io['box'], head_io['cls'], nms_cfg),
+               model.post_processing(dict(final_in)))
+    if not all(torch.equal(a, b) for a, b in zip(ker[0], pln[0])):
+        fail(f'{label}: proposal NMS keeps differ between kernel and plain overlaps')
+    for key in ('pred_boxes', 'pred_valid', 'pred_labels'):
+        if not torch.equal(ker[1][key], pln[1][key]):
+            fail(f'{label}: final NMS {key} differs between kernel and plain overlaps')
+    n_props = int(ker[0][3].sum())
+    log(f'# {label}: NMS keep lists identical (proposal NMS {n_props} RoIs over {BATCH} '
+        f'scans, final NMS {int(ker[1]["pred_valid"].sum())} detections)')
+    return n_props
+
+
+def grid_train_targets(out):
+    """Foreground counts of one RoI-grid train forward, and the rows the
+    device rulebooks dropped (must be none)."""
+    rec = {'positive_anchors': int((out['anchor_head_ret']['box_cls_labels'] > 0).sum()),
+           'foreground_rois': int(out['roi_head_ret']['reg_valid_mask'].sum()),
+           'sampled_rois': int(out['roi_head_ret']['reg_valid_mask'].numel()),
+           'rulebook_dropped': int(out['rulebook_overflow'].sum())}
+    if 'point_head_ret' in out:
+        rec['foreground_keypoints'] = int(
+            (out['point_head_ret']['point_cls_labels'] > 0).sum())
+    return rec
+
+
+def _grid_f32_step(step, batch, kernels):
+    """Loss terms, gradients, FPS picks, proposal keeps and sampled RoIs of
+    one f32 train step, through the plain versions when `kernels` is given;
+    the weights and statistics are left as they were."""
+    from fv2p_torch.models.roi_heads import pvrcnn_head
+    from fv2p_torch.ops import pointops
+    picks, props = [], []
+    fps_fn, prop_fn = pointops.fps, pvrcnn_head.proposal_layer
+
+    def fps_rec(*a):
+        picks.append(fps_fn(*a))
+        return picks[-1]
+
+    def prop_rec(*a):
+        props.append(prop_fn(*a))
+        return props[-1]
+    pointops.fps, pvrcnn_head.proposal_layer = fps_rec, prop_rec
+    try:
+        terms, grads, out = _zoo_f32_step(step, batch, kernels)
+    finally:
+        pointops.fps, pvrcnn_head.proposal_layer = fps_fn, prop_fn
+    return terms, grads, picks, props, out['roi_head_ret']['rois_sampled'].detach()
+
+
+def grid_phase(kernels, rows, label, batch, tbatch, later):
+    """A RoI-grid yaml (GRID_PATHS) at full width in bf16 on the bench batch
+    (batch 4, the voxels and each scan's 18000 raw points; the backbone
+    builds its rulebooks), BatchNorm calibrated on the batch. Counted (each
+    kernel of the path launches, no other; B2 once, B1 at least twice a
+    scan), every kernel call held against its plain version and timed
+    (`label`_* keys of `rows`; the calls appended to `later` for their device
+    time), proposal and final NMS keeps identical on both routes, the f32
+    forward through the kernels against the plain versions; the forward's
+    median, per module (VSA by part), peak memory, host waits, and each
+    ball-query call alone. Then train steps at the yaml's batch 4 on
+    24000-point scans with the six cars of each scan: an f32 step through
+    the kernels and through the plain versions (FPS picks, proposal keeps and
+    sampled RoIs identical, loss terms and gradients as FV2P's), 2 + 10 bf16
+    steps (each counted, every loss term finite, no rows dropped), one more
+    with each ball-query call alone, and one more whose kernel calls are
+    held to the plain versions and timed (`label`_train_* keys). Returns
+    the record."""
+    from fv2p_torch.datasets import dataset_meta_from_cfg
+    from fv2p_torch.ops import cuda as kcuda
+    path, launched = GRID_PATHS[label]
+    zcfg = load_cfg(path)
+    meta = dataset_meta_from_cfg(zcfg.DATA_CONFIG, 'test')
+    rec = {'voxels_per_scan': batch['voxel_valid'].sum(1).tolist(),
+           'points_per_scan': batch['points_valid'].sum(1).tolist()}
+    model = make_model(zcfg, meta, torch.bfloat16, calibrate_on=batch)
+    rec['parameters'] = sum(p.numel() for p in model.parameters())
+    post, _ = nms_lanes(zcfg)
+    head_io = {}
+    hook = model.dense_head.register_forward_hook(lambda m, a, o: head_io.update(
+        box=o['batch_box_preds'].clone(), cls=o['batch_cls_preds'].clone()))
+    out, calls, launches = counted_forward(kernels, model, batch, label, launched)
+    hook.remove()
+    keys = ('batch_box_preds', 'batch_cls_preds') + (
+        ('point_features',) if 'fps' in launched else ())
+    rec['valid_detections'] = check_outputs(out, post, keys)
+    rec['launches'] = launches
+    if launches['rotated_iou'] < 2 * BATCH:
+        fail(f'{label}: B1 launched {launches["rotated_iou"]} times, expected at least '
+             f'{2 * BATCH}')
+    if 'fps' in launched and launches['fps'] != 1:
+        fail(f'{label}: B2 launched {launches["fps"]} times a forward, expected 1')
+    if int(out['rulebook_overflow'].sum()):
+        fail(f'{label}: the device rulebooks dropped {out["rulebook_overflow"].tolist()} rows')
+    log(f'# {label}: {rec["parameters"]} parameters, {rec["valid_detections"]} valid '
+        f'detections over {BATCH} scans')
+    rec['proposals'] = grid_nms_keeps(kernels, model, label, head_io, out)
+    del out, head_io
+    train_kernel_rows(calls, launches, rows, prefix=label)
+    later.extend((label, calls[name]) for name in launched)
+    rec['f32_kernel_vs_plain_max_abs'] = f32_forward(
+        kernels, zcfg, meta, batch, post, keys, label,
+        ('pred_boxes', 'pred_scores', 'batch_box_preds', 'batch_cls_preds'), calibrate=True)
+    rec.update(forward_stats(model, batch, label))
+    if hasattr(model, 'pfe'):
+        rec['pfe_ms'] = pfe_times(model, batch)
+        log(f'# {label} VSA by part (ms, median of {MODULE_REPS}): '
+            f'{ {k: round(v, 3) for k, v in rec["pfe_ms"].items()} }')
+    rec['ball_queries'] = ball_query_stats(model, lambda: forward(model, batch), label)
+    rec['host_syncs'], rec['host_sync_sites'] = host_syncs(lambda: forward(model, batch))
+    log(f'# {label} host waits in one forward: {rec["host_syncs"]}; by line: '
+        f'{rec["host_sync_sites"]}')
+    del model
+    torch.cuda.empty_cache()
+
+    tmeta = dataset_meta_from_cfg(zcfg.DATA_CONFIG, 'train')
+    rec['train_batch'] = int(zcfg.OPTIMIZATION.BATCH_SIZE_PER_GPU)
+    if rec['train_batch'] != tbatch['voxels'].shape[0]:
+        fail(f'{label}: the train batch holds {tbatch["voxels"].shape[0]} scans, the yaml '
+             f'{rec["train_batch"]}')
+    rec['train_points_per_scan'] = tbatch['points_valid'].sum(1).tolist()
+    with full_f32():
+        step = make_train_step(zcfg, tmeta, None)
+        tk, gk, pk, nk, rk = _grid_f32_step(step, tbatch, None)
+        tp, gp, pp, np_, rp = _grid_f32_step(step, tbatch, kernels)
+    if len(pk) != (1 if 'fps' in launched else 0) or not all(
+            torch.equal(a, b) for a, b in zip(pk, pp)):
+        fail(f'{label} f32 step: FPS picks differ between kernel and plain')
+    if len(nk) != 1 or not all(torch.equal(a, b) for a, b in zip(nk[0], np_[0])):
+        fail(f'{label} f32 step: proposal NMS keeps differ between kernel and plain')
+    if not torch.equal(rk, rp):
+        fail(f'{label} f32 step: sampled RoIs differ between kernel and plain')
+    rec['f32_kernel_vs_plain'] = compare_train_steps(f'{label} f32 step', tk, tp, gk, gp)
+    log(f'# {label} f32 train step, kernels vs plain versions: FPS picks, proposal keeps '
+        f'and sampled RoIs identical; loss terms max relative difference '
+        f'{max(rec["f32_kernel_vs_plain"]["loss_rel_diff"].values()):.3g}; worst gradient '
+        f'{rec["f32_kernel_vs_plain"]["grad_worst_rel_to_max"]:.3g} of its max')
+    del step
+    torch.cuda.empty_cache()
+    step = make_train_step(zcfg, tmeta, torch.bfloat16)
+    trec = rec['train'] = timed_train_steps(kcuda, step, tbatch, launched, grid_train_targets)
+    first = trec['first_step_targets']
+    if first['rulebook_dropped'] or first['positive_anchors'] <= 0 or \
+            first['foreground_rois'] <= 0 or first.get('foreground_keypoints', 1) <= 0:
+        fail(f'{label} train: first step targets {first}')
+    if 'fps' in launched and any(n['fps'] != 1 for n in trec['launches_per_step']):
+        fail(f'{label} train: B2 launches per step {[n["fps"] for n in trec["launches_per_step"]]}')
+    log(f'# {label} train bf16 step at batch {rec["train_batch"]}, ms median (quartiles) of '
+        f'{TRAIN_TIMED}: ' + ', '.join(
+            f'{k} {v["median"]:.2f} ({v["q1"]:.2f}-{v["q3"]:.2f})' for k, v in trec['ms'].items())
+        + f'; peak {trec["peak_mem_gib"]:.2f} GiB; loss '
+        f'{[round(x, 3) for x in trec["loss_terms"]["loss"]]}; first step {first}')
+    rec['train_ball_queries'] = ball_query_stats(step.model, lambda: step.step(tbatch),
+                                                 f'{label} train')
+    tcalls, rec['train_launches'] = captured_train_calls(kernels, step, tbatch, launched)
+    train_kernel_rows(tcalls, rec['train_launches'], rows, prefix=f'{label}_train')
+    del step, tcalls
+    torch.cuda.empty_cache()
+    return rec
+
+
+def grid_batches(meta, batch_np):
+    """(eval batch, train batch) on the card for the RoI-grid models: the
+    bench batch's voxels and raw points without tables, and a train batch of
+    the same kind at the yaml's batch 4 with each scan padded to
+    TRAIN_POINTS points (B2's 24576-point instantiation) and its six cars as
+    gt."""
+    from fv2p_torch.utils.synthetic import batch_to_torch, synthetic_batch_np
+    keep = ('voxels', 'voxel_coords', 'voxel_num_points', 'voxel_valid', 'points',
+            'points_valid')
+    train_np = synthetic_batch_np(meta, BATCH, N_CAP, N_FILL, TRAIN_POINTS, seed=SEED + 3,
+                                  gt='scan', pad_points=True)
+    return (batch_to_torch({k: batch_np[k] for k in keep}, 'cuda'),
+            batch_to_torch({k: train_np[k] for k in keep + ('gt_boxes',)}, 'cuda'))
+
+
+def kitti_pv_rcnn_phase(kernels, rows):
+    """fv2p_torch.tools.train for one epoch of pv_rcnn_car.yaml on
+    data/kitti's 32 train scans (batch 4, 8 steps, bf16, 4 spawned workers,
+    device rulebooks at fv2p.yaml's train level capacities: pv_rcnn_car.yaml
+    sets none and its derived ones drop rows under gt sampling; the peak
+    learning rate at KITTI_TRAIN_LR, as kitti_train), then
+    fv2p_torch.tools.test on its checkpoint over the 24 val scans. Each run
+    is counted: both launch B1 and B2 and nothing else; the test run's calls
+    are held against the plain versions and timed (`kitti_pv_rcnn_*` keys).
+    The AP dict must be produced and every number finite."""
+    import shutil
+    import yaml
+    from fv2p_torch.ops import cuda as kcuda
+    from fv2p_torch.tools import train as train_runner
+    launched = GRID_PATHS['pv_rcnn'][1]
+    out = REPO / 'output' / 'chip_smoke' / 'kitti_pv_rcnn'
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    cfg_d = yaml.safe_load(PV_RCNN_CAR_CFG.read_text())
+    cfg_d['DATA_CONFIG']['_BASE_CONFIG_'] = str(
+        REPO / 'tools' / cfg_d['DATA_CONFIG']['_BASE_CONFIG_'])
+    cfg_d['DATA_CONFIG']['DATA_PATH'] = str(KITTI)
+    cfg_d['MODEL']['BACKBONE_3D']['LEVEL_CAPACITIES'] = yaml.safe_load(
+        CFG.read_text())['MODEL']['BACKBONE_3D']['LEVEL_CAPACITIES']
+    cfg_d['OPTIMIZATION']['LR'] = KITTI_TRAIN_LR
+    cfg_file = out / 'pv_rcnn_car_fixture.yaml'
+    cfg_file.write_text(yaml.safe_dump(cfg_d))
+    common = ['--cfg_file', str(cfg_file), '--workers', str(KITTI_WORKERS),
+              '--output_dir', str(out), '--rulebooks', 'device']
+    t0 = time.perf_counter()
+    kcuda.reset_launch_counts()
+    run = train_runner.main(common + ['--epochs', '1'])
+    sync()
+    train_s = time.perf_counter() - t0
+    train_launches = dict(kcuda.launch_counts)
+    for name, n in train_launches.items():
+        if (name in launched) != (n > 0):
+            fail(f'kitti_pv_rcnn: training launched {train_launches}; the path launches '
+                 f'{launched}')
+    steps = run['steps']
+    bad = [(s['it'], k) for s in steps for k, v in s.items() if not np.isfinite(v)]
+    if bad or len(steps) != 8 or any(s['rulebook_dropped'] for s in steps):
+        fail(f'kitti_pv_rcnn: {len(steps)} steps (expected 8), non-finite terms {bad}, or '
+             f'rows dropped')
+    if train_launches['fps'] != len(steps):
+        fail(f'kitti_pv_rcnn: B2 launched {train_launches["fps"]} times in {len(steps)} steps')
+    step_ms = np.array(run['step_s'][1:]) * 1e3
+    wait_ms = np.array(run['loader_wait_s'][1:]) * 1e3
+    ret, test_launches, _ = counted_test_run(
+        kernels, rows, 'kitti_pv_rcnn',
+        common + ['--ckpt', str(out / 'ckpt' / 'checkpoint_epoch_1.pth')], launched)
+    ap = {k: v for k, v in ret.items() if k.startswith('Car_')}
+    if not ap or any(not np.isfinite(v) for v in ret.values()):
+        fail(f'kitti_pv_rcnn: no AP dict or a result not finite: {ret}')
+    rec = {'steps': len(steps), 'train_wall_s': train_s, 'train_launches': train_launches,
+           'test_launches': test_launches,
+           'step_ms': {'median': float(np.median(step_ms)), 'all': step_ms.tolist()},
+           'loader_wait_ms_mean': float(wait_ms.mean()),
+           'loss': [s['loss'] for s in steps],
+           'test': {k: ret[k] for k in ('sec_per_example', 'loader_wait_s_per_batch',
+                                        'forward_ms_median', 'device_rulebook_dropped')},
+           'test_ap_car_3d': {k: v for k, v in ap.items() if k.startswith('Car_3d/')}}
+    log(f'# kitti_pv_rcnn: {len(steps)} train steps at batch '
+        f'{cfg_d["OPTIMIZATION"]["BATCH_SIZE_PER_GPU"]} through the runner ({train_s:.1f} s), '
+        f'step median {rec["step_ms"]["median"]:.2f} ms (loader wait '
+        f'{rec["loader_wait_ms_mean"]:.2f} ms a step), loss '
+        f'{[round(x, 3) for x in rec["loss"]]}; test: {ret["sec_per_example"] * 1e3:.2f} ms '
+        f'a scan, loader wait {ret["loader_wait_s_per_batch"] * 1e3:.2f} ms a batch, '
+        f'forward median {ret["forward_ms_median"]:.2f} ms; {len(ap)} Car AP keys, 3D '
+        f'{rec["test_ap_car_3d"]}')
     return rec
 
 
@@ -3006,12 +3421,12 @@ def main():
     from fv2p_torch.utils.synthetic import synthetic_batch_np
     zoo_train_np = synthetic_batch_np(meta, BATCH, N_CAP, N_FILL, N_POINTS, seed=SEED + 2,
                                       gt='scan')
-    zrec, b1_later = {}, []
+    zrec, later = {}, []
     for label, path in (('second', SECOND_CFG), ('pointpillar', PILLAR_CFG),
                         ('second_multihead', SECOND_MH_CFG)):
         zcfg = load_cfg(path)
         zrec[label] = zoo_phase(kernels, rows, label, zcfg,
-                                *zoo_batches(zcfg, batch_np, zoo_train_np), b1_later)
+                                *zoo_batches(zcfg, batch_np, zoo_train_np), later)
     del zoo_train_np
 
     # 9f. the runners with device rulebooks and SECOND on data/kitti
@@ -3021,9 +3436,27 @@ def main():
 
     # 9g. the CBGS multihead models at full width on the nuScenes fixture,
     # eval and train, then the runners on it
-    nrec = {label: nuscenes_phase(kernels, rows, label, path, b1_later)
+    nrec = {label: nuscenes_phase(kernels, rows, label, path, later)
             for label, path in (('nuscenes', NUSC_SECOND_CFG), ('nuscenes_pp', NUSC_PP_CFG))}
-    nrec['runner'] = nuscenes_runner_phase(kernels, rows, b1_later)
+    nrec['runner'] = nuscenes_runner_phase(kernels, rows, later)
+
+    # 9h. the RoI-grid models (PV-RCNN, Voxel R-CNN) at full width on the
+    # bench scans, eval and train, then PV-RCNN through the runners on
+    # data/kitti
+    t0 = time.perf_counter()
+    grid_eval, grid_train = grid_batches(meta, batch_np)
+    grec = {'batches_s': time.perf_counter() - t0}
+    for label in GRID_PATHS:
+        t0 = time.perf_counter()
+        grec[label] = grid_phase(kernels, rows, label, grid_eval, grid_train, later)
+        grec[label]['phase_s'] = time.perf_counter() - t0
+    del grid_eval, grid_train
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    grec['kitti_pv_rcnn'] = kitti_pv_rcnn_phase(kernels, rows)
+    grec['kitti_pv_rcnn']['phase_s'] = time.perf_counter() - t0
+    log(f'# RoI-grid phases (s): batches {grec["batches_s"]:.1f}, ' + ', '.join(
+        f'{k} {grec[k]["phase_s"]:.1f}' for k in list(GRID_PATHS) + ['kitti_pv_rcnn']))
 
     # 10. under the profiler and the sync debug mode, after every timed pass
     record.update(profile_stats(model, batch, 'fv2p'))
@@ -3051,12 +3484,14 @@ def main():
     mrec['b1']['device_ms'] = device_ms(
         lambda: [mgaf_b1.launch(a) for a in mgaf_b1.calls], reps=5)
     # B1 at the cls-score models' call sites (SECOND, PointPillar, the
-    # multihead models and the nuScenes test runner)
-    b1_row = next(row for row in rows if row['name'] == 'rotated_iou')
-    for label, k in b1_later:
-        b1_row[f'{label}_device_ms'] = device_ms(lambda: [k.launch(a) for a in k.calls], reps=5)
-    log('# B1\'s device time (ms) at the cls-score call sites: '
-        f'{ {label: round(b1_row[f"{label}_device_ms"], 4) for label, _ in b1_later} }')
+    # multihead models, the nuScenes test runner, PV-RCNN and Voxel R-CNN)
+    # and B2 at PV-RCNN's
+    row_of = {row['name']: row for row in rows}
+    for label, k in later:
+        row_of[k.name][f'{label}_device_ms'] = device_ms(
+            lambda: [k.launch(a) for a in k.calls], reps=2 if k.name == 'fps' else 5)
+    log('# device time (ms) at the later call sites: '
+        f'{ {f"{k.name} {label}": round(row_of[k.name][f"{label}_device_ms"], 4) for label, k in later} }')
     with torch.no_grad():
         drec['builder_kernels'] = queued_kernels(build_rulebooks)
         drec['builder_device_ms'] = device_ms(build_rulebooks, reps=5)
@@ -3067,7 +3502,7 @@ def main():
         f'B1 on MGAF\'s calls {mrec["b1"]["device_ms"]:.4f}')
     record.update(launches=launches, kernels=rows, nvidia_smi=smi,
                   valid_detections=n_valid, mgaf=mrec, train=trec, mgaf_train=mtrec,
-                  kitti=krec, device_rulebooks=drec, zoo=zrec, nuscenes=nrec,
+                  kitti=krec, device_rulebooks=drec, zoo=zrec, nuscenes=nrec, grid=grec,
                   wall_s=time.perf_counter() - T_START)
     log(f'# chip_smoke.py wall time {record["wall_s"]:.1f} s')
 

@@ -125,7 +125,8 @@ class Rulebooks:
 
 class _SparseBackbone(nn.Module):
     """The level shapes, the choice of tables, and the batch dict both
-    backbones leave."""
+    backbones leave; ``level_channels`` are the channels of the levels in
+    ``multi_scale_3d_features``."""
     host_tables = True
 
     def __init__(self, grid_size, level_caps=None):
@@ -162,6 +163,7 @@ class VoxelResBackBone8x(_SparseBackbone):
     """Residual sparse backbone of FV2P: 16 -> (16,16) res -> 32 stride 2 ->
     (32,32) res -> 64 stride 2 -> (64,64) res -> 128 stride 2 pad (0,1,1) ->
     (128,128) res -> conv_out 128, kernel (3,1,1) stride (2,1,1)."""
+    level_channels = {'x_conv1': 16, 'x_conv2': 32, 'x_conv3': 64, 'x_conv4': 128}
 
     def __init__(self, input_channels, grid_size, compute_dtype=None,
                  level_caps=None):
@@ -201,6 +203,7 @@ class VoxelBackBone8x(_SparseBackbone):
     64 -> conv_out 128, kernel (3,1,1) stride (2,1,1). It reads no host
     tables: it builds its rulebooks on the device from the voxels."""
     host_tables = False
+    level_channels = {'x_conv1': 16, 'x_conv2': 32, 'x_conv3': 64, 'x_conv4': 64}
 
     def __init__(self, input_channels, grid_size, compute_dtype=None,
                  level_caps=None):

@@ -1,8 +1,8 @@
 """Config-driven detector assembly (counterpart of
 ``fv2p_tpu/models/detectors/detector3d_template.py``), restricted to the
 detectors and modules ported so far: FV2P, MGAF-3DSSD, SECOND and
-PointPillar (with the single or the multihead anchor head), inference and
-training.
+PointPillar (with the single or the multihead anchor head), PV-RCNN and
+Voxel R-CNN, inference and training.
 
 Each of the 9 slots of the module topology is built iff its config key
 exists, and the forward runs the built slots in that order on one batch
@@ -19,6 +19,7 @@ from ..backbones_2d.base_bev_backbone import BaseBEVBackbone, DCNBEVBackbone
 from ..backbones_2d.map_to_bev.height_compression import HeightCompression
 from ..backbones_2d.map_to_bev.pointpillar_scatter import PointPillarScatter
 from ..backbones_3d.pfe.residual_v2p_decoder import ResidualVoxelToPointDecoder
+from ..backbones_3d.pfe.voxel_set_abstraction import VoxelSetAbstraction
 from ..backbones_3d.spconv_backbone import BACKBONES
 from ..backbones_3d.vfe.mean_vfe import MeanVFE
 from ..backbones_3d.vfe.pillar_vfe import PillarVFE
@@ -27,6 +28,8 @@ from ..dense_heads.anchor_head_multi import AnchorHeadMulti, anchor_head_multi_l
 from ..dense_heads.center_af_head import CenterAFHeadSingle, center_af_head_loss
 from ..dense_heads.point_head_simple import PointHeadSimple, point_head_loss
 from ..roi_heads.iouguided_roi_head import IoUGuidedRoIHead, roi_head_loss
+from ..roi_heads.pvrcnn_head import PVRCNNHead, pvrcnn_head_loss
+from ..roi_heads.voxelrcnn_head import VoxelRCNNHead, voxelrcnn_head_loss
 
 MODULE_TOPOLOGY = ['vfe', 'backbone_3d', 'map_to_bev_module', 'pfe',
                    'backbone_2d', 'dense_head', 'post_pfe', 'point_head',
@@ -40,12 +43,13 @@ _SLOT_KEYS = {'vfe': 'VFE', 'backbone_3d': 'BACKBONE_3D',
               'roi_head': 'ROI_HEAD'}
 _PORTED = {'VFE': ('MeanVFE', 'PillarVFE'),
            'BACKBONE_3D': ('VoxelResBackBone8x', 'VoxelBackBone8x'),
-           'MAP_TO_BEV': ('HeightCompression', 'PointPillarScatter'), 'PFE': (),
+           'MAP_TO_BEV': ('HeightCompression', 'PointPillarScatter'),
+           'PFE': ('VoxelSetAbstraction',),
            'BACKBONE_2D': ('BaseBEVBackbone', 'DCNBEVBackbone'),
            'DENSE_HEAD': ('AnchorHeadSingle', 'AnchorHeadMulti', 'CenterAFHeadSingle'),
            'POST_PFE': ('ResidualVoxelToPointDecoder',),
            'POINT_HEAD': ('PointHeadSimple',),
-           'ROI_HEAD': ('IoUGuidedRoIHead',)}
+           'ROI_HEAD': ('IoUGuidedRoIHead', 'PVRCNNHead', 'VoxelRCNNHead')}
 
 
 def _not_ported(what):
@@ -58,7 +62,8 @@ class Detector3DTemplate(nn.Module):
     """Builds the slots its config names; eval-mode forward through them,
     then ``final_predictions``: IoU-score-ranked NMS
     (``post_processing_withfgscores``) for FV2P and MGAF-3DSSD, cls-score
-    NMS (``post_processing``) for SECOND and PointPillar."""
+    NMS (``post_processing``) for SECOND, PointPillar, PV-RCNN and Voxel
+    R-CNN."""
 
     def __init__(self, model_cfg, num_class, class_names, dataset_meta,
                  compute_dtype=None):
@@ -118,22 +123,42 @@ class Detector3DTemplate(nn.Module):
                                   meta['voxel_size'], meta['point_cloud_range'],
                                   self.compute_dtype)
 
+    def _build_pfe(self):
+        meta = self.dataset_meta
+        return VoxelSetAbstraction(
+            self.model_cfg.PFE, meta['voxel_size'], meta['point_cloud_range'],
+            int(self.model_cfg.MAP_TO_BEV.NUM_BEV_FEATURES), meta['num_point_features'],
+            self.backbone_3d.level_channels)
+
     def _build_post_pfe(self):
         meta = self.dataset_meta
         return ResidualVoxelToPointDecoder(
             self.model_cfg.POST_PFE, tuple(meta['voxel_size']),
             tuple(meta['point_cloud_range']), self.compute_dtype)
 
-    def _point_channels(self):
-        return int(self.model_cfg.POST_PFE.OUT_BLOCK.OUT_CHANNELS)
+    def _point_channels(self, before_fusion=False):
+        """The width of ``point_features`` (or of the PFE's
+        ``point_features_before_fusion``)."""
+        if 'POST_PFE' in self.model_cfg:
+            return int(self.model_cfg.POST_PFE.OUT_BLOCK.OUT_CHANNELS)
+        if before_fusion:
+            return self.pfe.num_point_features_before_fusion
+        return self.pfe.num_point_features
 
     def _build_point_head(self):
-        return PointHeadSimple(self.model_cfg.POINT_HEAD, self._point_channels(),
-                               self.num_class, self.compute_dtype)
+        cfg = self.model_cfg.POINT_HEAD
+        before = cfg.get('USE_POINT_FEATURES_BEFORE_FUSION', False)
+        return PointHeadSimple(cfg, self._point_channels(before), self.num_class,
+                               self.compute_dtype)
 
     def _build_roi_head(self):
         cfg, meta = self.model_cfg.ROI_HEAD, self.dataset_meta
         roi_classes = 1 if cfg.get('CLASS_AGNOSTIC', True) else self.num_class
+        if cfg.NAME == 'PVRCNNHead':
+            return PVRCNNHead(cfg, roi_classes, self._point_channels())
+        if cfg.NAME == 'VoxelRCNNHead':
+            return VoxelRCNNHead(cfg, roi_classes, meta['point_cloud_range'],
+                                 meta['voxel_size'], self.backbone_3d.level_channels)
         return IoUGuidedRoIHead(cfg, roi_classes, tuple(meta['point_cloud_range']),
                                 tuple(meta['voxel_size']), self._point_channels(),
                                 self._bev_out_channels(), self.compute_dtype)
@@ -247,16 +272,37 @@ class PointPillar(SECONDNet):
     backbone -> anchor head -> cls-score NMS."""
 
 
+class PVRCNN(Detector3DTemplate):
+    """Point-voxel two-stage detector: sparse trunk (device rulebooks) ->
+    BEV backbone -> anchor head (proposals) -> voxel set abstraction of FPS
+    keypoints -> keypoint segmentation head -> RoI-grid pooling of the
+    score-weighted keypoint features -> cls-score NMS."""
+
+    def final_predictions(self, batch_dict):
+        return self.post_processing(batch_dict)
+
+
+class VoxelRCNN(Detector3DTemplate):
+    """Voxel two-stage detector: sparse trunk (device rulebooks) -> BEV
+    backbone -> anchor head (proposals) -> RoI-grid pooling straight from
+    the sparse levels -> cls-score NMS."""
+
+    def final_predictions(self, batch_dict):
+        return self.post_processing(batch_dict)
+
+
 DETECTOR_REGISTRY = {'FromVoxelToPoint': FromVoxelToPoint,
                      'MGAF3DSSD': MGAF3DSSD, 'SECONDNet': SECONDNet,
-                     'PointPillar': PointPillar}
+                     'PointPillar': PointPillar, 'PVRCNN': PVRCNN,
+                     'VoxelRCNN': VoxelRCNN}
 
 
 def compute_training_loss(model, batch_dict):
     """The training loss of a train-mode forward's ``batch_dict``: for FV2P
-    the RPN, point-head and RCNN losses summed, for MGAF-3DSSD the CenterAF
-    head's eight terms, for SECOND and PointPillar the RPN loss alone (the
-    multihead's own loss with ``AnchorHeadMulti``).
+    and PV-RCNN the RPN, point-head and RCNN losses summed, for Voxel
+    R-CNN the RPN and RCNN losses, for MGAF-3DSSD the CenterAF head's eight
+    terms, for SECOND and PointPillar the RPN loss alone (the multihead's
+    own loss with ``AnchorHeadMulti``).
     Returns (loss, terms), every term a 0-d tensor, ``terms['loss']`` the
     total."""
     cfg = model.model_cfg
@@ -272,11 +318,18 @@ def compute_training_loss(model, batch_dict):
         return rpn_loss, tb
     rpn_loss, tb = anchor_head_loss(cfg.DENSE_HEAD, batch_dict['anchor_head_ret'],
                                     head.anchors_flat, model.num_class)
+    if isinstance(model, VoxelRCNN):
+        rcnn_loss, tb_r = voxelrcnn_head_loss(cfg.ROI_HEAD, batch_dict['roi_head_ret'])
+        tb.update(tb_r)
+        loss = rpn_loss + rcnn_loss
+        tb['loss'] = loss
+        return loss, tb
     if isinstance(model, SECONDNet):
         tb['loss'] = rpn_loss
         return rpn_loss, tb
     point_loss, tb_p = point_head_loss(cfg.POINT_HEAD, batch_dict['point_head_ret'])
-    rcnn_loss, tb_r = roi_head_loss(cfg.ROI_HEAD, batch_dict['roi_head_ret'])
+    rcnn_fn = pvrcnn_head_loss if isinstance(model, PVRCNN) else roi_head_loss
+    rcnn_loss, tb_r = rcnn_fn(cfg.ROI_HEAD, batch_dict['roi_head_ret'])
     tb.update(tb_p)
     tb.update(tb_r)
     loss = rpn_loss + point_loss + rcnn_loss

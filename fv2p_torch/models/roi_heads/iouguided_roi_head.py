@@ -178,11 +178,12 @@ def assign_targets(batch_dict, target_cfg, draws):
     return out
 
 
-def roi_head_loss(model_cfg, ret):
-    """RCNN losses: BCE of the classification against the soft IoU labels,
-    smooth-l1 box regression on the canonical targets and the corner
-    regularisation (both over foreground RoIs), and smooth-l1 of the IoU
-    score. Returns (loss, terms)."""
+def rcnn_box_loss_terms(model_cfg, ret):
+    """The RCNN loss terms of every RoI-grid head: BCE of the
+    classification against the soft IoU labels, smooth-l1 box regression
+    on the canonical targets and the corner regularisation (both over
+    foreground RoIs). Returns {'rcnn_loss_cls', 'rcnn_loss_reg',
+    'rcnn_loss_corner'}."""
     lw = model_cfg.LOSS_CONFIG.LOSS_WEIGHTS
     coder = getattr(box_coder_utils, model_cfg.TARGET_CONFIG.BOX_CODER)()
     code_size = coder.code_size
@@ -223,9 +224,15 @@ def roi_head_loss(model_cfg, ret):
     dist = torch.minimum(torch.linalg.norm(pc - gc, dim=2),
                          torch.linalg.norm(pc - gcf, dim=2))     # (N, 8)
     corner = loss_utils.smooth_l1(dist, beta=1.0).mean(dim=1)
-    loss_corner = (corner * fg_mask).sum() / fg_sum * lw['rcnn_corner_weight']
-    tb['rcnn_loss_corner'] = loss_corner
+    tb['rcnn_loss_corner'] = (corner * fg_mask).sum() / fg_sum * lw['rcnn_corner_weight']
+    return tb
 
+
+def roi_head_loss(model_cfg, ret):
+    """RCNN losses: ``rcnn_box_loss_terms`` and smooth-l1 of the IoU score.
+    Returns (loss, terms)."""
+    lw = model_cfg.LOSS_CONFIG.LOSS_WEIGHTS
+    tb = rcnn_box_loss_terms(model_cfg, ret)
     iou_labels = (ret['gt_iou_of_rois'].reshape(-1) - 0.5) * 2.0
     iou_pred = ret['rcnn_iouscore'].reshape(-1)
     rv = (iou_labels >= (float(model_cfg.TARGET_CONFIG.REG_FG_THRESH) - 0.5) * 2
@@ -235,7 +242,7 @@ def roi_head_loss(model_cfg, ret):
     loss_iou = loss_iou * lw['rcnn_iouscore_weight']
     tb['rcnn_loss_iouscore'] = loss_iou
 
-    rcnn_loss = loss_cls + loss_reg + loss_corner + loss_iou
+    rcnn_loss = tb['rcnn_loss_cls'] + tb['rcnn_loss_reg'] + tb['rcnn_loss_corner'] + loss_iou
     tb['rcnn_loss'] = rcnn_loss
     return rcnn_loss, tb
 

@@ -3,7 +3,9 @@
   * farthest_point_sample_batch  (kernel B2 + wraparound padding)
   * three_nn / three_nn_interpolate(_flat)  (kernel B3 + inverse-distance
     weights)
-  * ball_query_group  (gather variant)
+  * ball_query_group  (gather variant, over a given distance matrix)
+  * ball_query_rows + group_rows  (the same search in bounded memory, over
+    each sample's own rows of a batch-flat source array)
   * points_in_boxes_index
   * roipoint_pool3d
   * bilinear_interpolate_bev
@@ -51,12 +53,13 @@ def three_nn_interpolate_flat(src_xyz, src_valid, src_feats, query_xyz, sample_r
 
 def first_k_hits(hits, k):
     """(..., N) bool -> (..., k) int64: indices of the first k True entries
-    in ascending order, -1 where the row has fewer."""
+    in ascending order, -1 where the row has fewer. The candidates are
+    int32, half the bytes of the (..., N) temporary."""
     n = hits.shape[-1]
-    iota = torch.arange(n, device=hits.device)
+    iota = torch.arange(n, dtype=torch.int32, device=hits.device)
     masked = torch.where(hits, iota, n)
     kk = min(k, n)
-    vals = torch.topk(masked, kk, dim=-1, largest=False, sorted=True).values
+    vals = torch.topk(masked, kk, dim=-1, largest=False, sorted=True).values.long()
     if kk < k:
         pad = vals.new_full(vals.shape[:-1] + (k - kk,), n)
         vals = torch.cat([vals, pad], dim=-1)
@@ -86,6 +89,93 @@ def ball_query_group(new_xyz, xyz, xyz_valid, feats, radius, nsample, d2):
     zero = ~any_neighbor[:, :, None, None]
     return (grouped_xyz.masked_fill(zero, 0.0),
             grouped_feats.masked_fill(zero, 0.0), any_neighbor)
+
+
+# (query, source) pairs one chunk of ``ball_query_rows`` searches: about 13
+# bytes each (f32 distance and square, in-ball mask, int32 candidate index),
+# some 440 MB of temporaries whatever the number of queries and sources
+BALL_QUERY_PAIRS = 1 << 25
+
+
+def ball_query_rows(new_xyz, xyz, xyz_valid, bounds, radii, nsamples,
+                    max_pairs=BALL_QUERY_PAIRS):
+    """For each query of sample b and each radius, the first nsample valid
+    rows of sample b's sources within the radius, in row order.
+
+    new_xyz (B, M, 3); xyz (N, 3), xyz_valid (N,): the sources of the whole
+    batch in one array, sample b's rows ``[bounds[b], bounds[b + 1])``
+    (``bounds``: B + 1 host ints). Returns one (B, M, nsample) int64 tensor
+    of rows per radius, -1 past a ball's count. These are the rows of the
+    dense search over all N sources with the other samples' rows masked
+    (JAX's batch-flat form), found chunk by chunk: a chunk is a block of
+    one sample's queries against a block of its sources, at most
+    ``max_pairs`` pairs, whose first hits are appended to those of the
+    earlier source blocks. The distances are computed once for all radii.
+    """
+    b, m, _ = new_xyz.shape
+    out = [torch.full((b, m, int(ns)), -1, dtype=torch.int64, device=new_xyz.device)
+           for ns in nsamples]
+    q_all = new_xyz.detach().float()
+    src = xyz.detach().float()
+    with torch.no_grad():
+        for i in range(b):
+            start, end = int(bounds[i]), int(bounds[i + 1])
+            if end <= start:
+                continue
+            s_step = min(end - start, max_pairs)
+            q_step = max(1, max_pairs // s_step)
+            for a in range(0, m, q_step):
+                q = q_all[i, a:a + q_step]
+                found = [None] * len(out)
+                for c in range(start, end, s_step):
+                    sx, sy, sz = src[c:min(c + s_step, end)].unbind(-1)
+                    nc = sx.shape[0]
+                    d2 = q[:, 0:1] - sx
+                    d2.mul_(d2)
+                    t = q[:, 1:2] - sy
+                    d2.add_(t.mul_(t))
+                    t = q[:, 2:3] - sz
+                    d2.add_(t.mul_(t))
+                    del t
+                    valid = xyz_valid[c:c + nc]
+                    for j, (r, ns) in enumerate(zip(radii, nsamples)):
+                        first = first_k_hits((d2 < float(r) * float(r)) & valid, int(ns))
+                        rows = torch.where(first >= 0, first + c, -1)
+                        found[j] = rows if found[j] is None else _append_hits(found[j], rows)
+                for j, o in enumerate(out):
+                    o[i, a:a + q_step] = found[j]
+    return out
+
+
+def _append_hits(acc, new):
+    """The first hits of two source blocks in order: acc and new (Q, S),
+    each its rows first and -1 after -> (Q, S)."""
+    ns = acc.shape[1]
+    cnt = (acc >= 0).sum(dim=1, keepdim=True)
+    slot = torch.arange(ns, device=acc.device)[None, :]
+    take = (slot - cnt).clamp(0, ns - 1)
+    return torch.where(slot < cnt, acc, new.gather(1, take))
+
+
+def group_rows(new_xyz, xyz, feats, idx):
+    """Gather the rows ``ball_query_rows`` found: new_xyz (B, M, 3), xyz
+    (N, 3), feats (N, C), idx (B, M, S) -> grouped_xyz (B, M, S, 3)
+    relative to the query, grouped_feats (B, M, S, C), any_neighbor (B, M).
+    Empty slots repeat the ball's first row; empty balls are zero
+    (``ball_query_group``'s output). The gather is an ``index_select``,
+    whose backward adds into the sources with ``index_add_``: the default
+    backward of ``src[idx]`` sorts the indices and adds each row's
+    duplicates one after another, and every empty ball sends all its slots
+    to row 0, hundreds of thousands of them at a RoI grid."""
+    any_neighbor = idx[..., 0] >= 0
+    idx = torch.where(idx >= 0, idx, idx[..., :1].clamp(min=0))
+    dt = torch.promote_types(xyz.dtype, feats.dtype)
+    src = torch.cat([xyz.to(dt), feats.to(dt)], dim=-1)
+    rows = torch.index_select(src, 0, idx.reshape(-1)).reshape(idx.shape + src.shape[-1:])
+    zero = ~any_neighbor[..., None, None]
+    grouped_xyz = rows[..., :3] - new_xyz[:, :, None, :].to(dt)
+    return (grouped_xyz.masked_fill(zero, 0.0),
+            rows[..., 3:].masked_fill(zero, 0.0), any_neighbor)
 
 
 def points_in_boxes_index(points, boxes, boxes_valid):

@@ -65,6 +65,17 @@ class SparseTensor:
         return torch.where(found, pos, self.capacity)
 
 
+def sample_row_bounds(st):
+    """(B + 1,) int64 on the device: sample b's rows are
+    ``[bounds[b], bounds[b + 1])``, its block in the host layout, its key
+    range in the batch-flat one (where the invalid rows follow the last)."""
+    ar = torch.arange(st.batch_size + 1, device=st.keys.device)
+    if st.sample_cap:
+        return ar * st.sample_cap
+    d, h, w = st.spatial_shape
+    return torch.searchsorted(st.keys, ar * (d * h * w))
+
+
 def check_key_range(spatial_shape, batch_size):
     """Raise ValueError unless every key of a (B, D, H, W) grid lies below
     ``INVALID_KEY`` (static ints: no host read of the card)."""

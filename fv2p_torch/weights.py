@@ -23,7 +23,8 @@ gets its (1, 1, I, O) kernel back).
 ``init_random_(model, seed)`` draws weights from a ``torch.Generator``: the
 same initialisers as the flax modules (LeCun normal kernels, zero biases,
 identity BatchNorm; the anchor heads' class convs, ``conv_cls`` and the
-multihead's ``h{i}_cls_out``, start at bias -log 99). The deformable
+multihead's ``h{i}_cls_out``, start at bias -log 99; the box convs and the
+RoI-grid heads' ``reg_out`` at std 0.001). The deformable
 blocks' offset convs are drawn like every other conv, not zeroed as flax
 does: zero offsets would make a DCN a plain conv. ``calibrate_batchnorm_(model, batch)`` then sets the BatchNorm
 statistics from one forward, so that deep models keep unit-scale
@@ -167,7 +168,8 @@ def init_random_(model, seed=0):
             fan_in = math.prod(w.shape[1:])
         else:
             continue
-        std = 0.001 if name.endswith('conv_box') else 1.0 / math.sqrt(fan_in)
+        small = name.endswith('conv_box') or name == 'roi_head.reg_out'
+        std = 0.001 if small else 1.0 / math.sqrt(fan_in)
         w.copy_(torch.randn(w.shape, generator=gen) * std)
         if getattr(module, 'bias', None) is not None:
             cls_out = name.endswith('conv_cls') or name.endswith('_cls_out')

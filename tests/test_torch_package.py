@@ -86,7 +86,7 @@ def test_build_network_without_device_needs_cuda(monkeypatch):
 
 def test_unported_detector_raises():
     meta = dataset_meta_from_cfg(TINY_DATA_CFG, 'train')
-    cfg = EasyDict(dict(TINY_FV2P_CFG, NAME='PVRCNN'))
+    cfg = EasyDict(dict(TINY_FV2P_CFG, NAME='PointRCNN'))
     with pytest.raises(NotImplementedError, match='ROADMAP'):
         torch_models.build_network(cfg, 1, ['Car'], meta, device='cpu')
 
@@ -118,13 +118,15 @@ FV2P_YAMLS = {'kitti_models/FV2P/fv2p_3classes.yaml': 20_995_058,
 
 def _jax_param_count(model_cfg, class_names, num_point_features):
     """Parameters of the JAX model of the same config, from an abstract init
-    on the tiny batch with the config's point features (no parameter shape
-    depends on the grid)."""
+    on the tiny batch with the config's point features in its voxels and
+    raw points (no parameter shape depends on the grid)."""
     cfg = copy.deepcopy(model_cfg)
     cfg.DENSE_HEAD.NUM_INFERENCE_SAMPLES = 10        # the tiny map has 64 cells
     jax_np, _, meta = make_rulebook_batches()
-    v = jax_np['voxels']
-    jax_np['voxels'] = np.pad(v, ((0, 0),) * 3 + ((0, num_point_features - v.shape[-1]),))
+    for key in ('voxels', 'points'):
+        v = jax_np[key]
+        jax_np[key] = np.pad(v, ((0, 0),) * (v.ndim - 1)
+                             + ((0, num_point_features - v.shape[-1]),))
     meta = dict(meta, num_point_features=num_point_features)
     jmodel = jax_build_network(cfg, num_class=len(class_names),
                                class_names=class_names, dataset_meta=meta)
