@@ -41,7 +41,7 @@ tiles an exact tile-pruned search must visit, (B2) the kernel's chain of
 cluster exchanges without its distance work, (B1) the share of pairs that
 survive the cull, and B1 on MGAF's calls; all deformable convolutions of one
 MGAF forward beside their bound; each model's whole forward on the batch
-already on the card (median of 20), per module, and its peak memory. Last,
+already on the card (median of 10), per module, and its peak memory. Last,
 under the profiler and CUDA's sync debug mode: the device's busy share of one
 pass of each model, each kernel's own device time, the kernels one IoU call
 queues, and the calls in one forward that make the host wait for the card,
@@ -58,7 +58,7 @@ the plain versions from the same weights and generators: FPS picks and
 proposal-NMS keeps identical, loss terms within 1e-5 relative, every
 gradient within 1e-4 max|g| + 1e-7 (the biases a train-mode BatchNorm
 normalises away, whose true gradient is 0, as noise on both sides). Then 2
-warm-up and 10 timed bf16 steps, each counted (B1, B2 and B3 launch on
+warm-up and 5 timed bf16 steps, each counted (B1, B2 and B3 launch on
 every step, B4 never: training groups without it), with CUDA events around
 forward+loss, backward and the optimizer step, every loss term finite; one
 more step whose kernel calls are held against the plain versions and timed
@@ -72,7 +72,7 @@ Then MGAF-3DSSD in train mode at full width, the same way: batch 4
 no raw points, the six cars of each scan as gt, adam_onecycle over 1000
 steps. The f32 step through the kernels and through the plain versions
 must give identical iou-score targets (B1's use on this path), loss terms
-within 1e-5 relative and gradients within 1e-4 max|g| + 1e-7; in the 2 + 10
+within 1e-5 relative and gradients within 1e-4 max|g| + 1e-7; in the 2 + 5
 bf16 steps B1 launches on every step and no other kernel does, every loss
 term is finite, and the first step has object centers and foreground
 cells among its targets; B1's calls of one more step are held against the
@@ -141,7 +141,7 @@ SECOND and PointPillar:
     (`second_*`, `pointpillar_*` keys), the f32 forward through the
     kernels against the plain versions, the forward's median, per-module
     times, peak memory and host waits; then an f32 train step through the
-    kernels and through the plain versions (as FV2P's), and 2 + 10 bf16
+    kernels and through the plain versions (as FV2P's), and 2 + 5 bf16
     steps at the yaml's batch 4 (adam_onecycle), every loss term finite and
     the loss falling.
   * kitti_eval_device: eval_one_epoch over data/kitti's val scans with
@@ -203,7 +203,7 @@ Then the RoI-grid models, after the nuScenes phases:
     steps at the yaml's batch 4 on 24000-point scans with the six cars of
     each scan (B2's 24576-point instantiation): an f32 step through the
     kernels and through the plain versions (FPS picks, proposal keeps and
-    sampled RoIs identical; loss terms and gradients as FV2P's), 2 + 10 bf16
+    sampled RoIs identical; loss terms and gradients as FV2P's), 2 + 5 bf16
     steps (B2 once and B1 on every step, every loss term finite, no rows
     dropped), one more with each ball-query call alone (at most
     BALL_QUERY_GIB), one more whose calls are held to the plain versions
@@ -217,8 +217,51 @@ Then the RoI-grid models, after the nuScenes phases:
     both counted (B1 and B2), the test run's calls held to the plain
     versions (`kitti_pv_rcnn_*` keys), the AP dict produced.
 
-The earlier paths keep their repetitions: the whole script stays within
-half its time limit without a cut.
+Then Waymo, on the committed fixture (data/waymo: 3 sequences of 2 frames,
+30000 points each; the script fails without it), after the RoI-grid phases:
+
+  * waymo_fv2p: tools/cfgs/waymo_models/FV2P/waymo_fv2p_e30.yaml at full
+    width in bf16, batch 2 (its BATCH_SIZE_PER_GPU): the 2 val frames
+    through the port's WaymoDataset in test mode (180000-point scans, the
+    90000-voxel test cap, host rulebooks at the yaml's level capacities on
+    the 1504 x 1504 x 41 grid), seeded weights. Counted (all four kernels;
+    B2 once, on its 180000-point instantiation, 16384 picks), every call
+    held to its plain version and timed (`waymo_fv2p_*` keys; B2 beside its
+    chain floor), NMS keeps identical, the f32 forward through the kernels
+    against the plain versions, the forward's median of 10, per module and
+    peak memory. Then 2 train samples (gt sampling, flips, rotation,
+    scaling; the 80000-voxel train cap): an f32 step through the kernels and
+    through the plain versions (as FV2P's KITTI step), and 2 + 5 bf16 steps
+    (B1, B2, B3 each step, every loss term finite, no level over its
+    capacity).
+  * waymo_pv_rcnn: tools/cfgs/waymo_models/pv_rcnn.yaml, one bf16 forward
+    on the same frames (device rulebooks at waymo_fv2p_e30.yaml's level
+    capacities: the yaml sets none and its derived ones drop rows; nothing
+    dropped), BatchNorm calibrated: B2 (4096 keypoints from 180000 points) and B1 counted and
+    held to their plain versions (`waymo_pv_rcnn_*` keys), NMS keeps
+    identical, each ball-query call alone within BALL_QUERY_GIB.
+  * waymo_runner: the gate fixture written into output/ by
+    ``python -m fv2p_torch.tools.make_synthetic_waymo``; the train runner
+    for WAYMO_RUNNER_EPOCHS epochs of waymo_mgaf-3dssd_overfit.yaml on it,
+    then the test runner with the native Waymo metrics (Vehicle L1/L2 AP
+    and APH); one train epoch of waymo_fv2p_e30.yaml on data/waymo and the
+    test runner with the KITTI-format metric. Launches counted, the test
+    runs' kernel calls held to the plain versions (`waymo_runner_*` keys).
+
+B2's corner cases (8.) include 180000-point scans: a mask that is no
+prefix, a row without a valid point, fewer valid points than picks, and
+the kernel's limit of 180224.
+
+Depths, cut so that the Waymo phases fit: forwards are timed as the median
+of 10 (FORWARD_REPS; 20 before), train steps as 2 + 5 (TRAIN_TIMED; 2 + 10
+before), each kernel's plain version is timed in the run that compares it
+(not once more), and the runs of a few batches after the KITTI runner
+phases (kitti_second, the nuScenes test run, kitti_pv_rcnn, waymo_runner)
+load in the main process (SHORT_RUN_WORKERS). No path, comparison or count
+of launches was dropped. The whole script takes about half its time limit
+of 1200 s: 565 s on an H100 (819 s with the Waymo phases before those
+cuts); the seconds of each phase are printed at the end (`phase_s` in
+chip_smoke.json).
 
 Exits non-zero on any failure, and without a CUDA card. The second-to-last
 lines are a JSON ``kernels`` object (FV2P's path) and the nvidia-smi name and
@@ -244,11 +287,16 @@ BATCH, N_CAP, N_FILL, N_POINTS, SEED = 4, 16000, 14000, 18000, 0
 # padded to MAX_POINTS_PER_SCAN, adam_onecycle over 1000 steps as
 # tools/bench_train.py schedules it
 TRAIN_BATCH, TRAIN_POINTS, TRAIN_TOTAL_STEPS = 2, 24000, 1000
-TRAIN_WARMUP, TRAIN_TIMED = 2, 10
+TRAIN_WARMUP, TRAIN_TIMED = 2, 5
 # the KITTI runner phases: the committed fixture, the runners' batch sizes
 # (eval 4 as the bench, train fv2p.yaml's 2) and spawned loader workers
 KITTI = REPO / 'data' / 'kitti'
 KITTI_BATCH, KITTI_TRAIN_BATCH, KITTI_WORKERS = 4, 2, 4
+# the runs of a few batches after the KITTI runner phases (kitti_second,
+# the nuScenes test run, kitti_pv_rcnn, waymo_runner) load in the main
+# process: a set of spawned workers took 10-30 s to start on the card's
+# host, longer than those runs' own data
+SHORT_RUN_WORKERS = 0
 KITTI_F32_ATOL = 1e-5
 KITTI_TRAIN_LR = 0.001          # fv2p.yaml's LR is 0.01
 
@@ -268,7 +316,7 @@ F32_ATOL = 1e-4
 # MGAF's f32 detections, host against device tables: at most this many
 # times what a 1e-6 relative perturbation of the BEV map moves them
 CONTROL_FACTOR = 2.0
-FORWARD_REPS = 20
+FORWARD_REPS = 10
 MODULE_REPS = 3
 KEPT_ROWS = 100             # the kept buffer of the proposal NMS (post_max)
 # finite outputs each model must give besides the detections
@@ -338,6 +386,7 @@ class Kernel:
         self.name, self.module, self.entries = name, module, entries
         self.source, self.replaces = source, replaces
         self.calls = []
+        self.plain_ms = None     # set by compare() over the calls
 
     def launch(self, call):
         fn, args = call
@@ -525,13 +574,22 @@ def compare(k, calls=None):
     """Kernel against plain version over every captured call (or the given
     (label, call) cases); returns the max abs error (indices must be
     identical) and the largest |plain| float output, which shows the
-    comparison is not between zeros."""
-    err = ref_max = 0.0
-    if calls is None:
+    comparison is not between zeros. Over the captured calls it also keeps
+    the plain version's time in `k.plain_ms` (CUDA events around each
+    call, the kernel's run before it, summed): the `plain_ms` of the
+    kernel rows."""
+    err = ref_max = plain_ms = 0.0
+    captured = calls is None
+    if captured:
         calls = [(f'main-path call {i}', c) for i, c in enumerate(k.calls)]
     for label, call in calls:
-        got, ref = k.launch(call), k.plain(call)
+        got = k.launch(call)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        ref = k.plain(call)
+        ev[1].record()
         sync()
+        plain_ms += ev[0].elapsed_time(ev[1])
         ref_f = ref[0] if k.name == 'three_nn' else ref
         if ref_f.is_floating_point() and ref_f.numel():
             # (an unfilled 3-NN slot is inf on both sides)
@@ -564,6 +622,8 @@ def compare(k, calls=None):
                 fail(f'sa_group differs by {e} of max(|ref|, {B4_FLOOR}) > {B4_REL} '
                      f'({label})')
             err = max(err, float((g32 - r32).abs().max()))
+    if captured:
+        k.plain_ms = plain_ms
     return err, ref_max
 
 
@@ -638,12 +698,25 @@ def fps_corner_cases():
         valid[0] = True
         cases.append(case(f'N = {n}', rng.randn(2, n, 3) * 20, valid, k))
     # the train path's scans (each block keeps only its own points): the
-    # 24000-point cap with a padded tail, and the kernel's limit
+    # 24000-point cap with a padded tail, and that instantiation's limit
     for n, tail, k in ((24000, 1500, 2048), (24576, 0, 1024)):
         valid = np.ones((2, n), bool)
         valid[:, n - tail:] = False
         cases.append(case(f'N = {n}, {tail} invalid rows at the end',
                           rng.randn(2, n, 3) * 20, valid, k))
+    # Waymo's 180000-point scans (the 16-block cluster, which skips each
+    # thread's invalid tail): a mask that is no prefix, a row without a
+    # valid point, fewer valid points than picks; then the kernel's limit
+    n = 180000
+    valid = rng.rand(3, n) < 0.17
+    valid[1] = False
+    valid[2] = False
+    valid[2, rng.choice(n, 300, replace=False)] = True
+    cases.append(case(f'N = {n}: scattered valid points / no valid point / 300 valid '
+                      f'< 1024 picks', rng.randn(3, n, 3) * 20, valid, 1024))
+    n = 22 * 16 * 512
+    cases.append(case(f'N = {n} (the limit), half valid', rng.randn(2, n, 3) * 20,
+                      rng.rand(2, n) < 0.5, 1024))
     return cases
 
 
@@ -896,13 +969,15 @@ def forward(model, batch):
     return model(dict(batch))
 
 
-def check_outputs(out, post, keys):
-    """Detections of the expected shapes (`post` slots a scan; the boxes as
-    wide as the decoded ones: 9 columns with nuScenes' velocities), finite,
-    at least one valid; the model's other outputs `keys` finite too."""
+def check_outputs(out, post, keys, batch_size=BATCH):
+    """Detections of the expected shapes (`batch_size` scans of `post`
+    slots; the boxes as wide as the decoded ones: 9 columns with nuScenes'
+    velocities), finite, at least one valid; the model's other outputs
+    `keys` finite too."""
     box_dim = out['batch_box_preds'].shape[-1] if 'batch_box_preds' in out else 7
-    for key, shape in (('pred_boxes', (BATCH, post, box_dim)), ('pred_scores', (BATCH, post)),
-                       ('pred_labels', (BATCH, post)), ('pred_valid', (BATCH, post))):
+    b = batch_size
+    for key, shape in (('pred_boxes', (b, post, box_dim)), ('pred_scores', (b, post)),
+                       ('pred_labels', (b, post)), ('pred_valid', (b, post))):
         if tuple(out[key].shape) != shape:
             fail(f'{key} has shape {tuple(out[key].shape)}, expected {shape}')
     for key in ('pred_boxes', 'pred_scores') + keys:
@@ -1015,7 +1090,7 @@ def module_times(model, run, tail='post_processing'):
     return times
 
 
-def forward_stats(model, batch, label):
+def forward_stats(model, batch, label, batch_size=BATCH):
     """Median and quartiles of FORWARD_REPS forwards after 2 warm-ups, the
     per-module times (median of MODULE_REPS more: one pass can catch a host
     stall that idles the card inside any module) and the peak device memory
@@ -1029,14 +1104,14 @@ def forward_stats(model, batch, label):
     forward(model, batch)
     sync()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    log(f'# {label} bf16 forward at batch {BATCH}: median {med:.2f} ms '
-        f'(quartiles {q1:.2f}-{q3:.2f}, n={FORWARD_REPS}; {med / BATCH:.2f} ms/scan); '
+    log(f'# {label} bf16 forward at batch {batch_size}: median {med:.2f} ms '
+        f'(quartiles {q1:.2f}-{q3:.2f}, n={FORWARD_REPS}; {med / batch_size:.2f} ms/scan); '
         f'peak device memory {peak:.2f} GiB')
     log(f'# {label} per module (ms, median of {MODULE_REPS}): {per_module}')
     return {'forward_ms': {'median': med, 'q1': q1, 'q3': q3, 'min': float(fwd.min()),
                            'max': float(fwd.max()), 'n': FORWARD_REPS,
                            'all': fwd.tolist()},
-            'ms_per_scan': med / BATCH, 'per_module_ms': per_module,
+            'ms_per_scan': med / batch_size, 'per_module_ms': per_module,
             'peak_mem_gib': peak}
 
 
@@ -1049,6 +1124,29 @@ def profile_stats(model, batch, label):
         f'({prof["device_busy_ms"]:.2f} of {prof["wall_ms"]:.2f} ms)')
     log(f'# {label} host waits in one forward: {n_syncs}; by line: {sync_sites}')
     return {'profile': prof, 'host_syncs': n_syncs, 'host_sync_sites': sync_sites}
+
+
+def fv2p_nms_keeps(kernels, model, head_io, out, label):
+    """FV2P's proposal NMS (the RoI head's TEST config on the dense head's
+    predictions, `head_io`) and its final NMS through B1 and through its
+    plain version: the keep lists must be identical."""
+    from fv2p_torch.models.roi_heads.iouguided_roi_head import proposal_layer
+    nms_cfg = model.model_cfg.ROI_HEAD.NMS_CONFIG.TEST
+    final_in = {k: out[k] for k in ('batch_box_preds', 'batch_cls_preds',
+                                    'batch_iouscore_preds', 'roi_labels',
+                                    'has_class_labels', 'cls_preds_normalized')}
+    ker = (proposal_layer(head_io['box'], head_io['cls'], nms_cfg),
+           model.post_processing_withfgscores(dict(final_in)))
+    with patched(kernels, plain_route):
+        pln = (proposal_layer(head_io['box'], head_io['cls'], nms_cfg),
+               model.post_processing_withfgscores(dict(final_in)))
+    if not (torch.equal(ker[0][0], pln[0][0]) and torch.equal(ker[0][3], pln[0][3])):
+        fail(f'{label}: proposal NMS keeps differ between kernel and plain overlaps')
+    for key in ('pred_boxes', 'pred_valid', 'pred_labels'):
+        if not torch.equal(ker[1][key], pln[1][key]):
+            fail(f'{label}: final NMS {key} differs between kernel and plain overlaps')
+    log(f'# {label}: NMS keep lists identical (proposal NMS {int(ker[0][3].sum())} RoIs, '
+        f'final NMS {int(ker[1]["pred_valid"].sum())} detections)')
 
 
 def mgaf_main_path(kernels, model, batch):
@@ -1088,7 +1186,7 @@ def mgaf_nms_keeps(kernels, model, out):
 
 
 def f32_forward(kernels, cfg, meta, batch, post, keys, label, compare_keys,
-                calibrate=False, cls_shift=0.0):
+                calibrate=False, cls_shift=0.0, batch_size=BATCH):
     """The forward in f32 without TF32 through the kernels and through the
     plain versions: identical detections, floats within F32_ATOL."""
     with full_f32():
@@ -1097,7 +1195,7 @@ def f32_forward(kernels, cfg, meta, batch, post, keys, label, compare_keys,
         with patched(kernels, plain_route):
             out_p = forward(model32, batch)
         sync()
-    check_outputs(out_k, post, keys)
+    check_outputs(out_k, post, keys, batch_size)
     for key in ('pred_valid', 'pred_labels'):
         if not torch.equal(out_k[key], out_p[key]):
             fail(f'{label} f32 forward: {key} differs between kernels and plain versions')
@@ -1319,7 +1417,7 @@ def _grads(model):
             if p.grad is not None}
 
 
-def train_f32_compare(kernels, cfg, meta, batch):
+def train_f32_compare(kernels, cfg, meta, batch, label='train'):
     """The first train step in f32 without TF32, from the same weights and
     generators, through the kernels and through the plain versions: FPS
     picks and proposal-NMS keeps identical, loss terms within 1e-5
@@ -1361,14 +1459,14 @@ def train_f32_compare(kernels, cfg, meta, batch):
         tk, gk, pk, nk, rk = run('kernel')
         tp, gp, pp, np_, rp = run('plain')
     if len(pk) != 1 or not torch.equal(pk[0], pp[0]):
-        fail('train f32 step: FPS picks differ between kernel and plain')
+        fail(f'{label} f32 step: FPS picks differ between kernel and plain')
     for a, b in zip(nk[0], np_[0]):
         if not torch.equal(a, b):
-            fail('train f32 step: proposal NMS keeps differ between kernel and plain')
+            fail(f'{label} f32 step: proposal NMS keeps differ between kernel and plain')
     if not torch.equal(rk, rp):
-        fail('train f32 step: sampled RoIs differ between kernel and plain')
-    rec = compare_train_steps('train f32 step', tk, tp, gk, gp)
-    log(f'# train f32 step, kernels vs plain versions: FPS picks and proposal keeps '
+        fail(f'{label} f32 step: sampled RoIs differ between kernel and plain')
+    rec = compare_train_steps(f'{label} f32 step', tk, tp, gk, gp)
+    log(f'# {label} f32 step, kernels vs plain versions: FPS picks and proposal keeps '
         f'identical; loss terms max relative difference {max(rec["loss_rel_diff"].values()):.3g}; '
         f'{len(gp)} gradient tensors, worst error {rec["grad_worst_rel_to_max"]:.3g} of the '
         f'tensor\'s max ({rec["zero_by_construction_biases"]} biases normalised away held '
@@ -1402,8 +1500,7 @@ def train_kernel_rows(train_calls, launches, rows, prefix='train', library=libra
             f'{prefix}_max_abs_err': err, f'{prefix}_ref_max': ref_max,
             f'{prefix}_ms': time_events(lambda: [k.launch(a) for a in k.calls],
                                         reps=3 if k.name == 'fps' else 10),
-            f'{prefix}_plain_ms': time_events(lambda: [k.plain(a) for a in k.calls],
-                                              reps=1, warmup=0 if k.name == 'fps' else 1),
+            f'{prefix}_plain_ms': k.plain_ms,
             f'{prefix}_bound_ms': max(b_bytes, b_ops) * 1e3,
             f'{prefix}_bound_by': 'bytes' if b_bytes >= b_ops else 'operations'})
         if k.name == 'fps':
@@ -2287,7 +2384,7 @@ def zoo_phase(kernels, rows, label, zcfg, batch, tbatch, later, cls_shift=0.0):
     its calls held against the plain version and timed, the f32 forward
     through the kernels against the plain versions; then train steps at the
     yaml's batch: an f32 step through the kernels and through the plain
-    versions, 2 + 10 bf16 steps with every loss term finite, the loss
+    versions, 2 + 5 bf16 steps with every loss term finite, the loss
     falling and no kernel launched. B1 with its calls is appended to
     `later` as (label, kernel), for its device time under the profiler at
     the end; `cls_shift` raises the eval model's class logits
@@ -2474,7 +2571,7 @@ def counted_test_run(kernels, rows, label, argv, launched):
 def kitti_second_phase(kernels, rows):
     """fv2p_torch.tools.train for one epoch of second.yaml on data/kitti's
     32 train scans (Car and Pedestrian: the fixture has no Cyclist; the
-    yaml's batch 4, bf16, 4 spawned workers; fv2p.yaml's train level
+    yaml's batch 4, bf16, loading in the main process; fv2p.yaml's train level
     capacities, below), then fv2p_torch.tools.test on its checkpoint over
     the 24 val scans. Both must finish with finite numbers and no rows
     dropped. Each run is counted: training launches no kernel, the test
@@ -2505,7 +2602,7 @@ def kitti_second_phase(kernels, rows):
         load_cfg(CFG).MODEL.BACKBONE_3D.LEVEL_CAPACITIES)
     cfg_file = out / 'second_car_pedestrian.yaml'
     cfg_file.write_text(yaml.safe_dump(cfg_d))
-    common = ['--cfg_file', str(cfg_file), '--workers', str(KITTI_WORKERS),
+    common = ['--cfg_file', str(cfg_file), '--workers', str(SHORT_RUN_WORKERS),
               '--output_dir', str(out)]
     t0 = time.perf_counter()
     kcuda.reset_launch_counts()
@@ -2661,8 +2758,9 @@ def nuscenes_runner_phase(kernels, rows, later):
     """The runners on data/nuscenes: fv2p_torch.tools.train for
     NUSC_RUNNER_EPOCHS epochs of cbgs_second_multihead_overfit.yaml (the
     CBGS-resampled train split at batch 4, the yaml's LEVEL_CAPACITIES with
-    --rulebooks device, 4 spawned workers), counted (no kernel launches); fv2p_torch.tools.test on its checkpoint with the
-    native evaluator, counted (B1 alone, its calls held to the plain
+    --rulebooks device, 4 spawned workers), counted (no kernel launches);
+    fv2p_torch.tools.test on its checkpoint (loading in the main process)
+    with the native evaluator, counted (B1 alone, its calls held to the plain
     version, the `nuscenes_runner_*` keys; B1 appended to `later` as
     ``zoo_phase`` does), mAP and NDS finite; then the
     train epoch again with --rulebooks device and NUSC_SMALL_CAPS, which
@@ -2693,6 +2791,7 @@ def nuscenes_runner_phase(kernels, rows, later):
     step_ms = np.array(run['step_s'][1:]) * 1e3
     wait_ms = np.array(run['loader_wait_s'][1:]) * 1e3
     ret, test_launches, cap = counted_test_run(kernels, rows, 'nuscenes_runner', common + [
+        '--workers', str(SHORT_RUN_WORKERS),
         '--ckpt', str(out / 'run' / 'ckpt' / f'checkpoint_epoch_{NUSC_RUNNER_EPOCHS}.pth'),
         '--output_dir', str(out / 'run')], ('rotated_iou',))
     later.append(('nuscenes_runner', next(k for k in cap if k.name == 'rotated_iou')))
@@ -2892,8 +2991,9 @@ def grid_nms_keeps(kernels, model, label, head_io, out):
         if not torch.equal(ker[1][key], pln[1][key]):
             fail(f'{label}: final NMS {key} differs between kernel and plain overlaps')
     n_props = int(ker[0][3].sum())
-    log(f'# {label}: NMS keep lists identical (proposal NMS {n_props} RoIs over {BATCH} '
-        f'scans, final NMS {int(ker[1]["pred_valid"].sum())} detections)')
+    log(f'# {label}: NMS keep lists identical (proposal NMS {n_props} RoIs over '
+        f'{head_io["box"].shape[0]} scans, final NMS {int(ker[1]["pred_valid"].sum())} '
+        f'detections)')
     return n_props
 
 
@@ -2947,7 +3047,7 @@ def grid_phase(kernels, rows, label, batch, tbatch, later):
     ball-query call alone. Then train steps at the yaml's batch 4 on
     24000-point scans with the six cars of each scan: an f32 step through
     the kernels and through the plain versions (FPS picks, proposal keeps and
-    sampled RoIs identical, loss terms and gradients as FV2P's), 2 + 10 bf16
+    sampled RoIs identical, loss terms and gradients as FV2P's), 2 + 5 bf16
     steps (each counted, every loss term finite, no rows dropped), one more
     with each ball-query call alone, and one more whose kernel calls are
     held to the plain versions and timed (`label`_train_* keys). Returns
@@ -3062,7 +3162,7 @@ def grid_batches(meta, batch_np):
 
 def kitti_pv_rcnn_phase(kernels, rows):
     """fv2p_torch.tools.train for one epoch of pv_rcnn_car.yaml on
-    data/kitti's 32 train scans (batch 4, 8 steps, bf16, 4 spawned workers,
+    data/kitti's 32 train scans (batch 4, 8 steps, bf16, loading in the main process,
     device rulebooks at fv2p.yaml's train level capacities: pv_rcnn_car.yaml
     sets none and its derived ones drop rows under gt sampling; the peak
     learning rate at KITTI_TRAIN_LR, as kitti_train), then
@@ -3087,7 +3187,7 @@ def kitti_pv_rcnn_phase(kernels, rows):
     cfg_d['OPTIMIZATION']['LR'] = KITTI_TRAIN_LR
     cfg_file = out / 'pv_rcnn_car_fixture.yaml'
     cfg_file.write_text(yaml.safe_dump(cfg_d))
-    common = ['--cfg_file', str(cfg_file), '--workers', str(KITTI_WORKERS),
+    common = ['--cfg_file', str(cfg_file), '--workers', str(SHORT_RUN_WORKERS),
               '--output_dir', str(out), '--rulebooks', 'device']
     t0 = time.perf_counter()
     kcuda.reset_launch_counts()
@@ -3133,6 +3233,287 @@ def kitti_pv_rcnn_phase(kernels, rows):
     return rec
 
 
+# ------------------------------------------------------------ Waymo
+
+WAYMO = REPO / 'data' / 'waymo'
+WAYMO_CFGS = REPO / 'tools' / 'cfgs' / 'waymo_models'
+WAYMO_FV2P_CFG = WAYMO_CFGS / 'FV2P' / 'waymo_fv2p_e30.yaml'
+WAYMO_PV_RCNN_CFG = WAYMO_CFGS / 'pv_rcnn.yaml'
+WAYMO_MGAF_GATE_CFG = WAYMO_CFGS / 'MGAF-3DSSD' / 'waymo_mgaf-3dssd_overfit.yaml'
+# both Waymo yamls' BATCH_SIZE_PER_GPU
+WAYMO_BATCH = 2
+# waymo_runner: MGAF epochs on the gate fixture (4 frames at batch 4: a step each)
+WAYMO_RUNNER_EPOCHS = 3
+ALL_KERNELS = ('rotated_iou', 'fps', 'three_nn', 'sa_group')
+
+
+def check_waymo_fixture():
+    if not (WAYMO / 'ImageSets' / 'val.txt').exists():
+        fail(f'{WAYMO} is missing: the Waymo phases run on the committed fixture '
+             f'(.chiprunignore must let data/waymo go to the card)')
+
+
+def waymo_batch(cfg, training, seed=SEED):
+    """The first WAYMO_BATCH samples of data/waymo through the port's
+    WaymoDataset with `cfg`'s DATA_CONFIG (180000-point scans, the mode's
+    voxel cap; train mode with gt sampling and every world augmentation,
+    drawn from RandomState(seed)) at SAMPLED_INTERVAL 1: the fixture has 2
+    frames a sequence, so the yaml's 5 would leave one frame a split. A
+    backbone that reads host rulebooks gets them at the yaml's level
+    capacities, which no level may pass. Returns (batch on the card, the
+    levels' largest row counts)."""
+    import copy
+    from fv2p_torch.datasets import build_dataset
+    from fv2p_torch.models.backbones_3d.spconv_backbone import reads_host_tables
+    from fv2p_torch.ops.sparse import host_rulebook
+    from fv2p_torch.utils.synthetic import batch_to_torch
+    dc = copy.deepcopy(cfg.DATA_CONFIG)
+    dc.SAMPLED_INTERVAL = {'train': 1, 'test': 1}
+    ds = build_dataset(dc, cfg.CLASS_NAMES, root_path=WAYMO, training=training,
+                       rng=np.random.RandomState(seed))
+    backbone = cfg.MODEL.get('BACKBONE_3D')
+    if backbone is not None and reads_host_tables(backbone.NAME):
+        ds.set_rulebook_spec(backbone.NAME, caps_override=backbone.get('LEVEL_CAPACITIES'))
+    host_rulebook.reset_overflow_stats()
+    batch_np = ds.collate_batch([ds[i] for i in range(WAYMO_BATCH)])
+    of = host_rulebook.get_overflow_stats()
+    if of['samples_over']:
+        fail(f'waymo batch: the host rulebooks pass the level capacities: {of}')
+    keep = {k: v for k, v in batch_np.items() if k not in ('metadata', 'frame_id')}
+    return batch_to_torch(keep, 'cuda'), dict(of['max_active'])
+
+
+def waymo_fv2p_phase(kernels, rows, later):
+    """waymo_fv2p_e30.yaml at full width in bf16 on WAYMO_BATCH val frames
+    of data/waymo (the 90000-voxel test cap, 180000-point scans, host
+    rulebooks at the yaml's level capacities), seeded weights. Counted (all
+    four kernels launch; B2 once, on its 180000-point instantiation), every
+    kernel call held against its plain version and timed (`waymo_fv2p_*`
+    keys: B2 beside its chain floor; B3's source rows a call), the NMS keeps
+    identical on both routes, the f32 forward through the kernels against
+    the plain versions; the forward's median, per module and peak memory.
+    Then training on WAYMO_BATCH train samples (gt sampling and every
+    augmentation, the 80000-voxel train cap): an f32 step through the
+    kernels and through the plain versions (FPS picks and proposal keeps
+    identical, loss terms and gradients as FV2P's KITTI step), and
+    TRAIN_WARMUP + TRAIN_TIMED bf16 steps (B1, B2, B3 on every step, every
+    loss term finite). Returns the record."""
+    from fv2p_torch.datasets import dataset_meta_from_cfg
+    from fv2p_torch.ops import cuda as kcuda
+    from fv2p_torch.ops.cuda import fps
+    label = 'waymo_fv2p'
+    cfg = load_cfg(WAYMO_FV2P_CFG)
+    meta = dataset_meta_from_cfg(cfg.DATA_CONFIG, 'test')
+    batch, occupancy = waymo_batch(cfg, training=False)
+    rec = {'voxels_per_scan': batch['voxel_valid'].sum(1).tolist(),
+           'points_per_scan': batch['points_valid'].sum(1).tolist(),
+           'points_cap': int(batch['points'].shape[1]), 'level_rows_max': occupancy,
+           'level_caps': {k[len('coords_'):]: int(v.shape[1])
+                          for k, v in batch['rulebooks'].items() if k.startswith('coords_')}}
+    log(f'# {label}: {rec["voxels_per_scan"]} voxels and {rec["points_per_scan"]} of '
+        f'{rec["points_cap"]} points a scan; level rows (most) {occupancy}, capacities '
+        f'{rec["level_caps"]}')
+    model = make_model(cfg, meta, torch.bfloat16)
+    rec['parameters'] = sum(p.numel() for p in model.parameters())
+    post = int(cfg.MODEL.POST_PROCESSING.NMS_CONFIG.NMS_POST_MAXSIZE)
+    head_io = {}
+    hook = model.dense_head.register_forward_hook(lambda m, a, o: head_io.update(
+        box=o['batch_box_preds'].clone(), cls=o['batch_cls_preds'].clone()))
+    out, calls, launches = counted_forward(kernels, model, batch, label, ALL_KERNELS)
+    hook.remove()
+    decoder = model.post_pfe
+    want = {'fps': 1, 'sa_group': 2, 'three_nn': len(
+        {decoder.model_cfg.INIT_BLOCK.SOURCE, *decoder.sources})}
+    for name, n in want.items():
+        if launches[name] != n:
+            fail(f'{label}: {name} launched {launches[name]} times, expected {n}')
+    if launches['rotated_iou'] < 2 * WAYMO_BATCH:
+        fail(f'{label}: B1 launched {launches["rotated_iou"]} times, expected at least '
+             f'{2 * WAYMO_BATCH}')
+    n_fps = calls['fps'].calls[0][1][0].shape[1]
+    if n_fps <= 24 * 1024:
+        fail(f'{label}: B2 took {n_fps} points a scan: not its 180000-point instantiation')
+    rec['launches'] = launches
+    rec['valid_detections'] = check_outputs(out, post, FV2P_KEYS, WAYMO_BATCH)
+    rec['three_nn_source_rows'] = [list(c[1][0].shape) for c in calls['three_nn'].calls]
+    log(f'# {label}: {rec["parameters"]} parameters, {rec["valid_detections"]} valid '
+        f'detections over {WAYMO_BATCH} scans; B3 sources a call {rec["three_nn_source_rows"]}')
+    fv2p_nms_keeps(kernels, model, head_io, out, label)
+    del out, head_io
+    train_kernel_rows(calls, launches, rows, prefix=label)
+    later.extend((label, calls[name]) for name in ALL_KERNELS)
+    rec['f32_kernel_vs_plain_max_abs'] = f32_forward(
+        kernels, cfg, meta, batch, post, FV2P_KEYS, label,
+        ('pred_boxes', 'pred_scores', 'point_features', 'batch_iouscore_preds'),
+        batch_size=WAYMO_BATCH)
+    rec.update(forward_stats(model, batch, label, WAYMO_BATCH))
+    del model, batch
+    torch.cuda.empty_cache()
+
+    tmeta = dataset_meta_from_cfg(cfg.DATA_CONFIG, 'train')
+    tbatch, rec['train_level_rows_max'] = waymo_batch(cfg, training=True)
+    rec['train_voxels_per_scan'] = tbatch['voxel_valid'].sum(1).tolist()
+    rec['train_gt_boxes'] = int((tbatch['gt_boxes'][..., 7] > 0).sum())
+    rec['f32_train_kernel_vs_plain'] = train_f32_compare(kernels, cfg, tmeta, tbatch, label)
+    step = make_train_step(cfg, tmeta, torch.bfloat16)
+    trec = rec['train'] = timed_train_steps(kcuda, step, tbatch,
+                                            ('rotated_iou', 'fps', 'three_nn'), train_targets)
+    log(f'# {label} train bf16 step at batch {WAYMO_BATCH} ({rec["train_voxels_per_scan"]} '
+        f'voxels, {rec["train_gt_boxes"]} gt boxes), ms median (quartiles) of '
+        f'{TRAIN_TIMED}: ' + ', '.join(
+            f'{k} {v["median"]:.2f} ({v["q1"]:.2f}-{v["q3"]:.2f})' for k, v in trec['ms'].items())
+        + f'; peak {trec["peak_mem_gib"]:.2f} GiB; loss '
+        f'{[round(x, 3) for x in trec["loss_terms"]["loss"]]}; first step '
+        f'{trec["first_step_targets"]}; level rows (most) {rec["train_level_rows_max"]}')
+    del step, tbatch
+    torch.cuda.empty_cache()
+    return rec
+
+
+def waymo_pv_rcnn_phase(kernels, rows, later):
+    """waymo_models/pv_rcnn.yaml, one bf16 forward at full width on the
+    same WAYMO_BATCH val frames (VoxelBackBone8x builds its rulebooks in the
+    forward; nothing may be dropped), BatchNorm calibrated on the batch. The
+    yaml sets no LEVEL_CAPACITIES and the derived ones drop rows at x_conv3
+    and x_conv4 on these frames, so the phase gives it waymo_fv2p_e30.yaml's
+    (the same grid and scans), as kitti_pv_rcnn borrows fv2p.yaml's.
+    Counted: B2 once (4096 keypoints from 180000-point scans) and B1 at
+    least twice a scan, nothing else; every call held to its plain version
+    and timed (`waymo_pv_rcnn_*` keys), the NMS keeps identical on both
+    routes, each ball-query call alone within BALL_QUERY_GIB (VSA groups
+    against the 180000 raw points of each scan)."""
+    from fv2p_torch.datasets import dataset_meta_from_cfg
+    label, launched = 'waymo_pv_rcnn', ('rotated_iou', 'fps')
+    cfg = load_cfg(WAYMO_PV_RCNN_CFG)
+    cfg.MODEL.BACKBONE_3D.LEVEL_CAPACITIES = load_cfg(
+        WAYMO_FV2P_CFG).MODEL.BACKBONE_3D.LEVEL_CAPACITIES
+    meta = dataset_meta_from_cfg(cfg.DATA_CONFIG, 'test')
+    batch, _ = waymo_batch(cfg, training=False)
+    model = make_model(cfg, meta, torch.bfloat16, calibrate_on=batch)
+    rec = {'parameters': sum(p.numel() for p in model.parameters())}
+    from fv2p_torch.models.backbones_3d.spconv_backbone import Rulebooks
+    with torch.no_grad():
+        derived = Rulebooks.on_device(model.vfe(dict(batch)), model.backbone_3d.shapes, None,
+                                      False)
+    rec['derived_caps_dropped'] = derived.overflow.tolist()
+    log(f'# {label}: the derived level capacities would drop {rec["derived_caps_dropped"]} '
+        f'rows at x_conv2..out; the phase runs at waymo_fv2p_e30.yaml\'s')
+    del derived
+    post, _ = nms_lanes(cfg)
+    head_io = {}
+    hook = model.dense_head.register_forward_hook(lambda m, a, o: head_io.update(
+        box=o['batch_box_preds'].clone(), cls=o['batch_cls_preds'].clone()))
+    out, calls, launches = counted_forward(kernels, model, batch, label, launched)
+    hook.remove()
+    rec['launches'] = launches
+    if launches['fps'] != 1 or launches['rotated_iou'] < 2 * WAYMO_BATCH:
+        fail(f'{label}: launches {launches}, expected B2 once and B1 at least '
+             f'{2 * WAYMO_BATCH} times')
+    fps_call = calls['fps'].calls[0][1]
+    rec['fps_shape'] = list(fps_call[0].shape) + [fps_call[2]]
+    if fps_call[0].shape[1] <= 24 * 1024:
+        fail(f'{label}: B2 took {fps_call[0].shape[1]} points a scan')
+    if int(out['rulebook_overflow'].sum()):
+        fail(f'{label}: the device rulebooks dropped {out["rulebook_overflow"].tolist()} rows')
+    rec['valid_detections'] = check_outputs(out, post, ('batch_box_preds', 'batch_cls_preds',
+                                                        'point_features'), WAYMO_BATCH)
+    rec['proposals'] = grid_nms_keeps(kernels, model, label, head_io, out)
+    log(f'# {label}: {rec["parameters"]} parameters, B2 {rec["fps_shape"]}, '
+        f'{rec["valid_detections"]} valid detections over {WAYMO_BATCH} scans')
+    del out, head_io
+    train_kernel_rows(calls, launches, rows, prefix=label)
+    later.extend((label, calls[name]) for name in launched)
+    rec['ball_queries'] = ball_query_stats(model, lambda: forward(model, batch), label)
+    del model, batch
+    torch.cuda.empty_cache()
+    return rec
+
+
+def waymo_runner_phase(kernels, rows):
+    """The runners on Waymo. (1) The gate fixture, written by
+    ``python -m fv2p_torch.tools.make_synthetic_waymo`` into output/:
+    fv2p_torch.tools.train for WAYMO_RUNNER_EPOCHS epochs of
+    waymo_mgaf-3dssd_overfit.yaml (batch 4, one step an epoch, --set
+    DATA_CONFIG.DATA_PATH to the tree, --rulebooks device as the Waymo gate
+    of tools/torch_learning_gate.sh; nothing dropped), then
+    fv2p_torch.tools.test on its
+    checkpoint with the yaml's EVAL_METRIC waymo (the native estimator):
+    training launches B1 alone, the test run too, its calls held to the
+    plain version (`waymo_runner_mgaf_*` keys), and the result carries
+    Vehicle L1/L2 AP and APH. (2) data/waymo: one train epoch of
+    waymo_fv2p_e30.yaml (SAMPLED_INTERVAL 1: 4 frames, 2 steps at batch 2;
+    the peak learning rate at KITTI_TRAIN_LR) and the test runner on its
+    checkpoint with EVAL_METRIC kitti (the yaml sets waymo; this run takes
+    the KITTI-format branch): training launches B1, B2 and B3, the test run
+    all four, held to the plain versions (`waymo_runner_fv2p_*` keys), and
+    the result carries the KITTI-format Car AP. Every number finite."""
+    import shutil
+    from fv2p_torch.ops import cuda as kcuda
+    from fv2p_torch.tools import train as train_runner
+    out = REPO / 'output' / 'chip_smoke' / 'waymo_runner'
+    shutil.rmtree(out, ignore_errors=True)
+    gate = out / 'waymo_gate'
+    t0 = time.perf_counter()
+    subprocess.run([sys.executable, '-m', 'fv2p_torch.tools.make_synthetic_waymo', str(gate)],
+                   cwd=REPO, check=True, stdout=subprocess.DEVNULL)
+    rec = {'generate_s': time.perf_counter() - t0}
+    runs = (('mgaf', WAYMO_MGAF_GATE_CFG, WAYMO_RUNNER_EPOCHS, ['--rulebooks', 'device'],
+             ('rotated_iou',), ('rotated_iou',), ['DATA_CONFIG.DATA_PATH', str(gate)]),
+            ('fv2p', WAYMO_FV2P_CFG, 1, [], ('rotated_iou', 'fps', 'three_nn'), ALL_KERNELS,
+             ['DATA_CONFIG.DATA_PATH', str(WAYMO), 'DATA_CONFIG.SAMPLED_INTERVAL.train', '1',
+              'DATA_CONFIG.SAMPLED_INTERVAL.test', '1', 'OPTIMIZATION.LR', str(KITTI_TRAIN_LR),
+              'MODEL.POST_PROCESSING.EVAL_METRIC', 'kitti']))
+    for name, path, epochs, train_extra, train_launched, test_launched, sets in runs:
+        label = f'waymo_runner_{name}'
+        common = ['--cfg_file', str(path), '--workers', str(SHORT_RUN_WORKERS),
+                  '--output_dir', str(out / name)]
+        t0 = time.perf_counter()
+        kcuda.reset_launch_counts()
+        run = train_runner.main(common + train_extra + [
+            '--epochs', str(epochs), '--ckpt_save_interval', str(epochs), '--set', *sets])
+        sync()
+        train_s = time.perf_counter() - t0
+        train_launches = dict(kcuda.launch_counts)
+        for k, n in train_launches.items():
+            if (k in train_launched) != (n > 0):
+                fail(f'{label}: training launched {train_launches}; the path launches '
+                     f'{train_launched}')
+        steps = run['steps']
+        bad = [(s['it'], k) for s in steps for k, v in s.items() if not np.isfinite(v)]
+        if bad or not steps or any(s.get('rulebook_dropped', 0) for s in steps):
+            fail(f'{label}: {len(steps)} steps, non-finite terms {bad}, or rows dropped')
+        t0 = time.perf_counter()
+        ret, test_launches, _ = counted_test_run(
+            kernels, rows, label,
+            common + ['--ckpt', str(out / name / 'ckpt' / f'checkpoint_epoch_{epochs}.pth'),
+                      '--set', *sets], test_launched)
+        test_s = time.perf_counter() - t0
+        if any(not np.isfinite(v) for v in ret.values()):
+            fail(f'{label}: a result is not finite: {ret}')
+        if name == 'mgaf':
+            ap = {k: v for k, v in ret.items() if k.startswith('OBJECT_TYPE_TYPE_VEHICLE')}
+            if len(ap) != 4:
+                fail(f'{label}: no Vehicle L1/L2 AP and APH in the result: {ret}')
+        else:
+            ap = {k: v for k, v in ret.items() if k.startswith('Car_3d/')}
+            if not ap:
+                fail(f'{label}: no KITTI-format Car AP in the result: {ret}')
+        rec[name] = {'steps': len(steps), 'train_s': train_s, 'test_s': test_s,
+                     'train_launches': train_launches, 'test_launches': test_launches,
+                     'loss': [s['loss'] for s in steps],
+                     'step_ms_median': float(np.median(run['step_s'][1:] or run['step_s'])
+                                             * 1e3),
+                     'ap': ap, 'recall': {k: v for k, v in ret.items()
+                                          if k.startswith('recall/')},
+                     'test': {k: ret[k] for k in ('sec_per_example', 'loader_wait_s_per_batch',
+                                                  'forward_ms_median')}}
+        log(f'# {label}: {len(steps)} train steps ({train_s:.1f} s; loss '
+            f'{[round(x, 3) for x in rec[name]["loss"]]}), test run {test_s:.1f} s '
+            f'({ret["sec_per_example"] * 1e3:.2f} ms a scan); launches train '
+            f'{train_launches}, test {test_launches}; {ap}')
+    return rec
+
+
 T_START = time.perf_counter()
 
 
@@ -3145,14 +3526,22 @@ def main():
         return 2
     check_kitti_fixture()
     check_nuscenes_fixture()
+    check_waymo_fixture()
     sys.path.insert(0, str(REPO))
     from fv2p_torch.datasets import dataset_meta_from_cfg
-    from fv2p_torch.models.roi_heads.iouguided_roi_head import proposal_layer
     from fv2p_torch.ops import cuda as kcuda
     from fv2p_torch.ops.cuda import fps, rotated_iou
 
     record = {'device': torch.cuda.get_device_name(0),
               'torch': torch.__version__, 'cuda': torch.version.cuda}
+    phase_s, lap_t = {}, [time.perf_counter()]
+
+    def lap(name):
+        # seconds since the previous lap, under `name` in the record
+        now = time.perf_counter()
+        phase_s[name] = now - lap_t[0]
+        lap_t[0] = now
+
     smi = nvidia_smi()
     log(f'# card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}')
 
@@ -3237,23 +3626,8 @@ def main():
     record['kernel_ref_max_abs'] = {name: c[1] for name, c in compared.items()}
     log(f'# kernel vs plain max abs error: {errs}; largest |plain output|: '
         f'{record["kernel_ref_max_abs"]}')
-    # NMS keep lists: proposal NMS and final NMS, kernel vs plain overlaps
-    nms_cfg = cfg.MODEL.ROI_HEAD.NMS_CONFIG.TEST
-    final_in = {k: out[k] for k in ('batch_box_preds', 'batch_cls_preds',
-                                    'batch_iouscore_preds', 'roi_labels',
-                                    'has_class_labels', 'cls_preds_normalized')}
-    ker = (proposal_layer(head_io['box'], head_io['cls'], nms_cfg),
-           model.post_processing_withfgscores(dict(final_in)))
-    with patched(kernels, plain_route):
-        pln = (proposal_layer(head_io['box'], head_io['cls'], nms_cfg),
-               model.post_processing_withfgscores(dict(final_in)))
-    if not (torch.equal(ker[0][0], pln[0][0]) and torch.equal(ker[0][3], pln[0][3])):
-        fail('proposal NMS keeps differ between kernel and plain overlaps')
-    for key in ('pred_boxes', 'pred_valid', 'pred_labels'):
-        if not torch.equal(ker[1][key], pln[1][key]):
-            fail(f'final NMS {key} differs between kernel and plain overlaps')
-    log('# NMS keep lists identical (proposal and final)')
-    del out, ker, pln, head_io
+    fv2p_nms_keeps(kernels, model, head_io, out, 'fv2p')
+    del out, head_io
 
     # 6. MGAF's main path on the same batch, counted, then B1 against its
     # plain version on MGAF's calls and the final NMS keep lists
@@ -3285,8 +3659,10 @@ def main():
         ('pred_boxes', 'pred_scores', 'batch_box_preds', 'batch_iouscore_preds'),
         calibrate=True)
 
+    lap('main_paths')
     # 8. every kernel on the corner cases its design puts at risk
     corner_phase(by_name)
+    lap('corner_cases')
 
     # 9. times: each kernel's calls of one forward, then the whole forwards.
     # Nothing before the timed forwards runs under torch.profiler: once the
@@ -3296,8 +3672,7 @@ def main():
     for k in kernels:
         ms = time_events(lambda: [k.launch(a) for a in k.calls],
                          reps=3 if k.name == 'fps' else 10)
-        plain_ms = time_events(lambda: [k.plain(a) for a in k.calls], reps=1,
-                               warmup=0 if k.name == 'fps' else 1)
+        plain_ms = k.plain_ms            # from the comparison above (5.)
         lib_ms = None
         if k.name == 'three_nn':
             lib_ms = time_events(lambda: [library_three_nn(a) for a in k.calls],
@@ -3343,8 +3718,7 @@ def main():
     mrec['b1'] = {'launches': mrec['launches']['rotated_iou'],
                   'ms': time_events(lambda: [mgaf_b1.launch(a) for a in mgaf_b1.calls],
                                     reps=10),
-                  'plain_ms': time_events(lambda: [mgaf_b1.plain(a) for a in mgaf_b1.calls],
-                                          reps=3),
+                  'plain_ms': mgaf_b1.plain_ms,
                   'bound_ms': max(b_bytes, b_ops) * 1e3,
                   'bound_by': 'bytes' if b_bytes >= b_ops else 'operations',
                   'max_abs_err': mrec['b1_max_abs_err']}
@@ -3360,6 +3734,7 @@ def main():
     mrec.update(forward_stats(mgaf, batch, 'mgaf'))
     mrec['dcn']['share_of_forward'] = mrec['dcn']['ms'] / mrec['forward_ms']['median']
 
+    lap('kernel_and_forward_times')
     # 9b. training: fv2p.yaml in train mode at batch 2 on 24000-point scans,
     # bf16 compute and f32 parameters; the f32 step against the plain
     # versions, then the timed steps (each counted: B1, B2, B3 launch, B4
@@ -3394,6 +3769,7 @@ def main():
     train_kernel_rows(train_calls, trec['launches'], rows)
     del train_calls
 
+    lap('fv2p_train')
     # 9b'. the runners on the KITTI fixture (data/kitti): eval_one_epoch over
     # the val scans at the test cap for FV2P and MGAF, the evaluator on the
     # val gt, and the train runner across a restart
@@ -3408,14 +3784,17 @@ def main():
     krec['evaluator'] = kitti_evaluator_phase(ktest_set, kannos, kret)
     krec['train'] = kitti_train_phase(kernels, rows, cfg)
 
+    lap('kitti_runners')
     # 9c. MGAF training
     mtrec = mgaf_train_phase(kernels, mcfg, meta, rows)
+    lap('mgaf_train')
 
     # 9d. device rulebooks: FV2P and MGAF on the bench batch as the loader
     # ships it with --rulebooks device, against host mode
     drec, build_rulebooks = device_rulebooks_phase(kernels, rows, cfg, mcfg, meta, batch_np,
                                                    model, mgaf, record, mrec)
 
+    lap('device_rulebooks')
     # 9e. SECOND and PointPillar at full width on the bench scans, eval and
     # train (batch 4 each, with the six cars of each scan as gt)
     from fv2p_torch.utils.synthetic import synthetic_batch_np
@@ -3429,16 +3808,20 @@ def main():
                                 *zoo_batches(zcfg, batch_np, zoo_train_np), later)
     del zoo_train_np
 
+    lap('zoo')
     # 9f. the runners with device rulebooks and SECOND on data/kitti
     krec['eval_device'] = kitti_eval_device_phase(kernels, rows, cfg, kmodel, krec['eval'],
                                                   kfirst, kfirst_np)
     krec['second'] = kitti_second_phase(kernels, rows)
 
+    lap('kitti_device_and_second_runners')
     # 9g. the CBGS multihead models at full width on the nuScenes fixture,
     # eval and train, then the runners on it
     nrec = {label: nuscenes_phase(kernels, rows, label, path, later)
             for label, path in (('nuscenes', NUSC_SECOND_CFG), ('nuscenes_pp', NUSC_PP_CFG))}
+    lap('nuscenes')
     nrec['runner'] = nuscenes_runner_phase(kernels, rows, later)
+    lap('nuscenes_runner')
 
     # 9h. the RoI-grid models (PV-RCNN, Voxel R-CNN) at full width on the
     # bench scans, eval and train, then PV-RCNN through the runners on
@@ -3457,6 +3840,17 @@ def main():
     grec['kitti_pv_rcnn']['phase_s'] = time.perf_counter() - t0
     log(f'# RoI-grid phases (s): batches {grec["batches_s"]:.1f}, ' + ', '.join(
         f'{k} {grec[k]["phase_s"]:.1f}' for k in list(GRID_PATHS) + ['kitti_pv_rcnn']))
+    lap('grid')
+
+    # 9i. Waymo: FV2P (B2 on its 180000-point instantiation) and PV-RCNN at
+    # full width on data/waymo, B2's corner cases at that size ran with the
+    # others (8.); then the runners on the gate fixture and on data/waymo
+    wrec = {'fv2p': waymo_fv2p_phase(kernels, rows, later)}
+    lap('waymo_fv2p')
+    wrec['pv_rcnn'] = waymo_pv_rcnn_phase(kernels, rows, later)
+    lap('waymo_pv_rcnn')
+    wrec['runner'] = waymo_runner_phase(kernels, rows)
+    lap('waymo_runner')
 
     # 10. under the profiler and the sync debug mode, after every timed pass
     record.update(profile_stats(model, batch, 'fv2p'))
@@ -3500,10 +3894,12 @@ def main():
     log('# card busy in each kernel\'s calls of one forward (ms): '
         f'{ {row["name"]: round(row["device_ms"], 4) for row in rows} }; '
         f'B1 on MGAF\'s calls {mrec["b1"]["device_ms"]:.4f}')
+    lap('profiler')
     record.update(launches=launches, kernels=rows, nvidia_smi=smi,
                   valid_detections=n_valid, mgaf=mrec, train=trec, mgaf_train=mtrec,
                   kitti=krec, device_rulebooks=drec, zoo=zrec, nuscenes=nrec, grid=grec,
-                  wall_s=time.perf_counter() - T_START)
+                  waymo=wrec, phase_s=phase_s, wall_s=time.perf_counter() - T_START)
+    log(f'# seconds by phase: { {k: round(v, 1) for k, v in phase_s.items()} }')
     log(f'# chip_smoke.py wall time {record["wall_s"]:.1f} s')
 
     OUT_DIR.mkdir(exist_ok=True)

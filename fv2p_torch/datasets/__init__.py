@@ -39,17 +39,16 @@ def dataset_meta_from_cfg(data_cfg, split='train'):
 
 def build_dataset(data_cfg, class_names, root_path=None, training=True,
                   logger=None, rng=None):
-    """The dataset named by DATA_CONFIG.DATASET (KITTI or nuScenes; Waymo is
-    not ported), drawing its random numbers from ``rng`` (a
-    ``np.random.RandomState``; None: unseeded)."""
+    """The dataset named by DATA_CONFIG.DATASET (KITTI, nuScenes or Waymo),
+    drawing its random numbers from ``rng`` (a ``np.random.RandomState``;
+    None: unseeded)."""
     name = data_cfg.get('DATASET', 'KittiDataset')
     if name == 'KittiDataset':
         from .kitti.kitti_dataset import KittiDataset as cls
     elif name == 'NuScenesDataset':
         from .nuscenes.nuscenes_dataset import NuScenesDataset as cls
     elif name == 'WaymoDataset':
-        raise NotImplementedError(
-            f'{name} is not in fv2p_torch yet (ROADMAP.md, queue A)')
+        from .waymo.waymo_dataset import WaymoDataset as cls
     else:
         raise KeyError(f'unknown dataset: {name}')
     return cls(dataset_cfg=data_cfg, class_names=class_names, root_path=root_path,

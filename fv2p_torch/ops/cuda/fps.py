@@ -7,19 +7,22 @@ distance, the lowest index winning ties; invalid points never win. When
 fewer points than picks are valid, later picks repeat selected points (the
 caller adds the wraparound padding).
 
-The kernel spreads one scan over a thread-block cluster, so it needs a card
-of compute capability 9.0 or later (H100); on an older card ``fps_cuda``
-raises ``ValueError`` before it launches anything.
+The kernel spreads one scan over a thread-block cluster (16 blocks, past the
+portable 8, above 24576 points), so it needs a card of compute capability
+9.0 or later (H100); on an older card ``fps_cuda`` raises ``ValueError``
+before it launches anything.
 """
 import torch
 
 from . import check_launch, check_tensor, launch_counts, library, require, stream_handle
 
 _BIG = 1e10
-# 24 points a thread of the 1024 a cluster has: covers the 24000-point scans
-# of the KITTI train config (MAX_POINTS_PER_SCAN). Up to 18 * 1024 points
-# every block keeps the whole scan's coordinates; above, its own only.
-MAX_POINTS = 24 * 1024
+# Three instantiations of the kernel, by the scan's point count N. Up to
+# 18 * 1024 points (8 blocks of 128 threads) every block keeps the whole
+# scan's coordinates; up to 24 * 1024 (the 24000-point scans of the KITTI
+# train config) each block keeps its own; above, up to 22 points a thread
+# of a 16 x 512 cluster: the 180000-point Waymo scans (MAX_POINTS_PER_SCAN).
+MAX_POINTS = 22 * 16 * 512
 
 
 def fps_plain(points, valid, num_samples):

@@ -77,13 +77,16 @@ def backbone_spec(backbone_name, grid_size, voxel_capacity,
     """Static conv topology of a backbone (sparse z = nz + 1). The level
     capacities are ``level_capacities(voxel_capacity)``, with the entries of
     ``caps_override`` (level -> rows, one mode's: ``select_mode_caps``) in
-    their place."""
+    their place, but x_conv1's: that level holds the voxels themselves, so
+    its rows are the voxel capacity. (waymo_fv2p_e30.yaml sets x_conv1 to
+    90000 for both modes and trains at 80000 voxels: tables of 90000 rows
+    over 80000 inputs, on which JAX's backbone fails with a shape error.)"""
     if backbone_name not in ('VoxelResBackBone8x', 'VoxelBackBone8x'):
         raise NotImplementedError(backbone_name)
     nx, ny, nz = grid_size
     caps = level_capacities(voxel_capacity)
     if caps_override:
-        caps.update({k: int(v) for k, v in caps_override.items()})
+        caps.update({k: int(v) for k, v in caps_override.items() if k != 'x_conv1'})
     return {
         'levels': ['x_conv1', 'x_conv2', 'x_conv3', 'x_conv4', 'out'],
         'caps': caps,

@@ -26,7 +26,7 @@ from ..utils import common_utils
 from ..weights import init_random_
 from .eval_utils import eval_one_epoch
 
-NOT_PORTED = ('--dist and --num_devices (multi-GPU, ROADMAP.md A3) are not '
+NOT_PORTED = ('--dist and --num_devices (multi-GPU, ROADMAP.md A2) are not '
               'ported: passing one raises.')
 CKPT_PATTERN = re.compile(r'^checkpoint_epoch_(\d+)\.pth$')
 
@@ -49,9 +49,9 @@ def add_common_args(parser):
     parser.add_argument('--set', dest='set_cfgs', default=None, nargs=argparse.REMAINDER,
                         help='KEY VALUE pairs that override the yaml')
     parser.add_argument('--dist', action='store_true', default=False,
-                        help='not ported (ROADMAP.md A3): raises')
+                        help='not ported (ROADMAP.md A2): raises')
     parser.add_argument('--num_devices', type=int, default=None,
-                        help='not ported (ROADMAP.md A3): raises')
+                        help='not ported (ROADMAP.md A2): raises')
     parser.add_argument('--rulebooks', choices=['host', 'device'], default='host',
                         help='host: per-sample rulebooks built in the loader '
                              'workers (C++); device: built in the forward from '

@@ -381,10 +381,12 @@ def test_recall_counter_matches_jax(eval_sets):
 
 
 def test_build_dataset_refuses_unported_datasets():
-    """Waymo is not ported (nuScenes is: tests/test_torch_nuscenes.py)."""
+    """A dataset the port has no class for is refused by name (KITTI,
+    nuScenes and Waymo are ported: tests/test_torch_nuscenes.py and
+    tests/test_torch_waymo.py)."""
     _, tcfg = _cfgs()
-    cfg = EasyDict(dict(tcfg.DATA_CONFIG, DATASET='WaymoDataset'))
-    with pytest.raises(NotImplementedError, match='WaymoDataset'):
+    cfg = EasyDict(dict(tcfg.DATA_CONFIG, DATASET='LyftDataset'))
+    with pytest.raises(KeyError, match='LyftDataset'):
         build_dataset(cfg, ['Car'], training=False)
 
 

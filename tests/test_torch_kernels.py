@@ -14,6 +14,8 @@ bf16: |diff| <= 1.6e-2 * max(1, |ref|), about two bf16 ulps, since both
 sides round layer 1 to bf16 and differ only in the f32 order of the
 layer-2 sums.
 """
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -329,32 +331,53 @@ def test_b2_fps_corner_cases_match_pallas(case):
         assert len(set(got[0])) == 7
 
 
-def test_b2_limit_covers_kitti_train_scans():
-    """The kernel takes the raw-point cap FV2P's KITTI config trains on
-    (the dataset pads every scan to MAX_POINTS_PER_SCAN)."""
-    from pathlib import Path
+def _builds(model_cfg):
+    """Whether the port builds this MODEL config: its detector and every
+    slot it names are ported (the 7 PointRCNN and PartA2 yamls are not)."""
+    from fv2p_torch.models.detectors.detector3d_template import (
+        _PORTED, _SLOT_KEYS, DETECTOR_REGISTRY)
+    return model_cfg.NAME in DETECTOR_REGISTRY and all(
+        model_cfg[key].NAME in _PORTED[key] for key in _SLOT_KEYS.values()
+        if key in model_cfg)
+
+
+def test_b2_limit_covers_every_built_yaml_scan_cap():
+    """The kernel takes the raw-point cap of every yaml under tools/cfgs/
+    that the port builds (the dataset pads every scan to
+    MAX_POINTS_PER_SCAN): Waymo FV2P's and Waymo PV-RCNN's 180000 are the
+    largest."""
     from fv2p_torch.config import EasyDict, cfg_from_yaml_file
     from fv2p_torch.ops.cuda import fps as fps_module
-    cfg = EasyDict()
-    cfg_from_yaml_file(str(Path(__file__).resolve().parent.parent / 'tools/cfgs/'
-                           'kitti_models/FV2P/fv2p.yaml'), cfg)
-    cap = int(cfg.DATA_CONFIG.MAX_POINTS_PER_SCAN)
-    assert cap == 24000
-    assert fps_module.MAX_POINTS >= cap
+    repo = Path(__file__).resolve().parent.parent
+    caps = {}
+    for path in sorted((repo / 'tools' / 'cfgs').glob('*_models/**/*.yaml')):
+        cfg = EasyDict()
+        cfg_from_yaml_file(str(path), cfg)
+        if 'MAX_POINTS_PER_SCAN' in cfg.DATA_CONFIG and _builds(cfg.MODEL):
+            caps[str(path.relative_to(repo))] = int(cfg.DATA_CONFIG.MAX_POINTS_PER_SCAN)
+    assert caps['tools/cfgs/kitti_models/FV2P/fv2p.yaml'] == 24000
+    assert max(caps.values()) == 180000
+    assert {k for k, v in caps.items() if v == 180000} == {
+        'tools/cfgs/waymo_models/FV2P/waymo_fv2p_e30.yaml',
+        'tools/cfgs/waymo_models/pv_rcnn.yaml'}
+    assert fps_module.MAX_POINTS >= max(caps.values())
     # the C source refuses above the same limit the wrapper checks
     src = (Path(fps_module.__file__).resolve().parent.parent / 'csrc' / 'fps.cu').read_text()
-    assert f'kMaxPoints = {fps_module.MAX_POINTS // 1024} * kStride' in src
-    assert 'kStride = kCluster * kThreads' in src and 'kCluster = 8;' in src
-    assert 'kThreads = 128;' in src
+    assert f'kMaxPointsWide = {fps_module.MAX_POINTS // (16 * 512)} * kWideStride' in src
+    assert 'kWideStride = kWideCluster * kWideThreads' in src
+    assert 'kWideCluster = 16;' in src and 'kWideThreads = 512;' in src
+    assert 'n > kMaxPointsWide) return static_cast<int>(cudaErrorInvalidValue)' in src
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize('n,n_valid', [(24000, 22500), (24576, 24576), (18000, 17000)])
+@pytest.mark.parametrize('n,n_valid', [(24000, 22500), (24576, 24576), (18000, 17000),
+                                       (180000, 30000)])
 def test_b2_kernel_on_card_at_train_scan_sizes(n, n_valid):
     """Runs on a machine with a CUDA card (``python -m pytest -m cuda
-    tests/test_torch_kernels.py``): the whole-scan instantiation (18000) and
-    the own-points one (24000 with an invalid tail, 24576) pick exactly as
-    the plain version."""
+    tests/test_torch_kernels.py``): the whole-scan instantiation (18000),
+    the own-points one (24000 with an invalid tail, 24576) and the 16-block
+    one (a Waymo scan, 180000 points with 30000 valid) pick exactly as the
+    plain version."""
     if not torch.cuda.is_available():
         pytest.skip('needs a CUDA card: the kernels are built with nvcc')
     g = torch.Generator().manual_seed(n)

@@ -1,20 +1,24 @@
 #!/usr/bin/env python3
-"""Times variants of the 3-NN (B3) and rotated-IoU (B1) CUDA kernels of the
-PyTorch port on the inputs that the FV2P forward gives them.
+"""Times variants of the 3-NN (B3), rotated-IoU (B1) and FPS (B2) CUDA
+kernels of the PyTorch port on the inputs that the forwards give them.
 
     python3 tools/torch_kernel_variants.py      # repository root, one CUDA card
 
 The tree keeps one kernel per function, its shape as plain ``constexpr``
 constants. A variant here is a copy of the kernel's source under
-``build/variants/`` with some of those constants set to other values (and,
-for B1, with the shared-memory queue taken out so that every thread clips
-its own surviving pairs), built with the port's own flags and loaded in
-place of the kept library. The script runs the bench forward of
-``chip_smoke.py`` once to capture the kernels' calls, checks that each
-variant's outputs equal the kept kernel's bit for bit, and prints the time
-the card is busy in one forward's calls (``chip_smoke.device_ms``, mean of 20
-replays) beside the card's name and power limit. A fuller record goes to
-``chiprun_out/kernel_variants.json``.
+``build/variants/`` with some of those constants set to other values (for
+B1, also with the shared-memory queue taken out so that every thread clips
+its own surviving pairs; for B2's 180000-point instantiation, with the
+one-level exchange of the 8-block shapes in place of its two-level one),
+built with the port's own flags and loaded in place of the kept library.
+The script runs the bench forward of ``chip_smoke.py`` once to capture the
+B3 and B1 calls, and takes B2's call from the Waymo FV2P forward's inputs
+(``chip_smoke.waymo_batch``: 16384 picks from 2 x 180000 points of
+data/waymo); it checks that each variant's outputs equal the kept kernel's
+bit for bit, and prints the time the card is busy in one forward's calls
+(``chip_smoke.device_ms``, mean of 20 replays; 3 for B2), for B2 beside the
+variant's chain floor, with the card's name and power limit. A fuller
+record goes to ``chiprun_out/kernel_variants.json``.
 """
 import json
 import re
@@ -28,7 +32,7 @@ sys.path.insert(0, str(REPO))
 
 import chip_smoke as cs  # noqa: E402
 from fv2p_torch.ops import cuda as kcuda  # noqa: E402
-from fv2p_torch.ops.cuda import rotated_iou, three_nn  # noqa: E402
+from fv2p_torch.ops.cuda import fps, rotated_iou, three_nn  # noqa: E402
 
 THREE_NN = [{}] + [{'kTileRows': v} for v in (64, 128, 384, 512)] + [
     {'kWarps': v} for v in (2, 8, 16)] + [
@@ -37,6 +41,7 @@ THREE_NN = [{}] + [{'kTileRows': v} for v in (64, 128, 384, 512)] + [
     {'kWarps': 8, 'kQueriesPerBlock': 32}]
 ROTATED_IOU = [{}, {'kThreads': 128}, {'kThreads': 512}, {'kTile': 16},
                {'kTile': 64}, {'queue': False}, {'queue': False, 'kThreads': 128}]
+FPS = [{}, {'kWideTwoLevel': 'false'}]
 
 # B1 without the queue: where a surviving pair would be queued, clip it
 QUEUE_PUSH = '''    const unsigned mask = __ballot_sync(kFull, live);
@@ -73,7 +78,8 @@ def variant_source(name, changes):
                                    'script expects')
             src = src.replace(QUEUE_PUSH, CLIP_IN_PLACE)
             continue
-        src, n = re.subn(rf'(constexpr int {const} = )[^;]+;', rf'\g<1>{value};', src)
+        src, n = re.subn(rf'(constexpr (?:int|bool) {const} = )[^;]+;', rf'\g<1>{value};',
+                         src)
         if n != 1:
             raise RuntimeError(f'{name}.cu has no constant {const}')
     return src
@@ -104,6 +110,7 @@ def main():
                                   {'iou_bev_cuda': 'iou_bev_plain',
                                    'iou_bev_upper_cuda': 'iou_bev_upper_plain'}, '', ''),
                         ROTATED_IOU),
+        'fps': (cs.Kernel('fps', fps, {'fps_cuda': 'fps_plain'}, '', ''), FPS),
     }
     jobs, libs = {}, {}
     out_dir = kcuda.BUILD_DIR.parent / 'variants'
@@ -121,9 +128,15 @@ def main():
     from fv2p_torch.utils.synthetic import batch_to_torch
     cfg, meta, batch_np, _ = cs.build_inputs()
     model = cs.make_model(cfg, meta, torch.bfloat16)
-    with cs.patched([k for k, _ in kernels.values()], cs.capturing):
+    with cs.patched([kernels['three_nn'][0], kernels['rotated_iou'][0]], cs.capturing):
         cs.forward(model, batch_to_torch(batch_np, 'cuda'))
     cs.sync()
+    # B2 as Waymo FV2P's decoder calls it (pointops.farthest_point_sample_batch)
+    wcfg = cs.load_cfg(cs.WAYMO_FV2P_CFG)
+    wbatch, _ = cs.waymo_batch(wcfg, training=False)
+    kernels['fps'][0].calls.append(('fps_cuda', (
+        wbatch['points'][..., :3].float().contiguous(), wbatch['points_valid'].contiguous(),
+        int(wcfg.MODEL.POST_PFE.NUM_KEYPOINTS))))
 
     record = {'nvidia_smi': smi, 'variants': []}
     for name, (k, variants) in kernels.items():
@@ -132,13 +145,19 @@ def main():
         for i, changes in enumerate(variants):
             kcuda._libs[name] = kcuda.load(libs[name, i], name)
             same = all(torch.equal(a, b) for a, b in zip(outputs(k), kept))
-            ms = cs.device_ms(lambda: [k.launch(c) for c in k.calls], reps=20)
+            ms = cs.device_ms(lambda: [k.launch(c) for c in k.calls],
+                              reps=3 if name == 'fps' else 20)
             regs = re.findall(r'Used (\d+) registers', built[f'{name}: {label(changes)}'][1])
-            record['variants'].append({'kernel': name, 'changes': changes,
-                                       'device_ms': ms, 'equal_to_kept': same,
-                                       'registers': [int(r) for r in regs]})
+            row = {'kernel': name, 'changes': changes, 'device_ms': ms,
+                   'equal_to_kept': same, 'registers': [int(r) for r in regs]}
+            if name == 'fps':
+                row['chain_floor_ms'] = cs.time_events(
+                    lambda: [fps.fps_chain_floor_cuda(*a) for _, a in k.calls], reps=3)
+            record['variants'].append(row)
             print(f'{name:12s} {label(changes):40s} {ms:.4f} ms  '
-                  f'{"equal" if same else "DIFFERS"}  registers {regs}', flush=True)
+                  f'{"equal" if same else "DIFFERS"}  registers {regs}'
+                  + (f'  chain floor {row["chain_floor_ms"]:.3f} ms (events)'
+                     if name == 'fps' else ''), flush=True)
         del kcuda._libs[name]
     cs.OUT_DIR.mkdir(exist_ok=True)
     (cs.OUT_DIR / 'kernel_variants.json').write_text(json.dumps(record, indent=1))
