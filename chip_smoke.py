@@ -252,15 +252,46 @@ B2's corner cases (8.) include 180000-point scans: a mask that is no
 prefix, a row without a valid point, fewer valid points than picks, and
 the kernel's limit of 180224.
 
+Then PointRCNN on data/kitti, and data parallelism, after the Waymo phases:
+
+  * kitti_pointrcnn: kitti_models/pointrcnn.yaml at full width on the first
+    4 val scans through KittiDataset (16384 sampled points a scan), seeded
+    weights, BatchNorm calibrated (the point modules compute in f32, as
+    JAX's, whatever the runner's dtype). Counted: B2 six times (the
+    backbone's 4096 / 1024 / 256 / 64 picks, the RoI head's 128 of 512 and
+    32 of 128 in each of 400 RoI rows), B3 at the four FP levels, B1 at
+    least twice a scan; each call site held to the plain versions and
+    timed (`kitti_pointrcnn_{backbone,head,nms}_*` keys), NMS keeps
+    identical, the f32 forward through the kernels against the plain
+    versions, the forward's median, per module, peak memory, the head's B2
+    share of the forward, each backbone ball query alone.
+  * kitti_pointrcnn_train: 2 + 5 bf16 train steps of pointrcnn.yaml (Car
+    and Pedestrian: the fixture's classes) on 4 train samples with gt
+    sampling, jittered gt boxes among the proposals so that the RCNN
+    regression trains (above 0 every step), one more step's calls held to
+    the plain versions by call
+    site (the head's B2 on 512 rows; `kitti_pointrcnn_train_*` keys), one
+    step of pointrcnn_iou_car.yaml, and fv2p_torch.tools.test over the 24
+    val scans (`kitti_pointrcnn_test_*` keys), AP finite.
+  * ddp: (a) torchrun --nproc_per_node 1 -m fv2p_torch.tools.train --dist
+    (NCCL) against the same run without --dist, loss terms by step; DDP's
+    cost a step at one rank. (b) two gloo ranks on the card, one f32 FV2P
+    train step at global batch 4 against this process computing the two
+    halves in turn and averaging them: gradients, updated parameters and
+    averaged running statistics. (c) the test runner in two gloo ranks
+    against one rank: merged detections in dataset order, recall and AP.
+    The card is one, so NCCL at more than one rank is not checked.
+
 Depths, cut so that the Waymo phases fit: forwards are timed as the median
 of 10 (FORWARD_REPS; 20 before), train steps as 2 + 5 (TRAIN_TIMED; 2 + 10
 before), each kernel's plain version is timed in the run that compares it
 (not once more), and the runs of a few batches after the KITTI runner
 phases (kitti_second, the nuScenes test run, kitti_pv_rcnn, waymo_runner)
 load in the main process (SHORT_RUN_WORKERS). No path, comparison or count
-of launches was dropped. The whole script takes about half its time limit
-of 1200 s: 565 s on an H100 (819 s with the Waymo phases before those
-cuts); the seconds of each phase are printed at the end (`phase_s` in
+of launches was dropped. The whole script took 565 s on an H100 (819 s with
+the Waymo phases before those cuts), and 783 s with the PointRCNN and ddp
+phases (~160 s of it) on a slower host, against a time limit of 1200 s; the
+seconds of each phase are printed at the end (`phase_s` in
 chip_smoke.json).
 
 Exits non-zero on any failure, and without a CUDA card. The second-to-last
@@ -2866,9 +2897,11 @@ BALL_QUERY_GIB = 1.0
 def grid_sources(model):
     """The ball-query calls of one forward of a RoI-grid model, in order:
     VSA's raw points and sparse levels, then the RoI grid (PV-RCNN), or
-    the grid's sparse levels (Voxel R-CNN)."""
+    the grid's sparse levels (Voxel R-CNN); PointRCNN's SA levels."""
     if hasattr(model, 'pfe'):
         return ['raw_points'] + list(model.pfe.levels) + ['roi_grid']
+    if hasattr(model.backbone_3d, 'n_sa'):              # PointNet2MSG: one a SA level
+        return [f'sa{i}' for i in range(model.backbone_3d.n_sa)]
     return [f'roi_grid_{s}' for s in model.roi_head.sources]
 
 
@@ -3514,6 +3547,597 @@ def waymo_runner_phase(kernels, rows):
     return rec
 
 
+# ------------------------------------------------------ PointRCNN (KITTI)
+
+POINTRCNN_CFG = REPO / 'tools' / 'cfgs' / 'kitti_models' / 'pointrcnn.yaml'
+POINTRCNN_IOU_CAR_CFG = REPO / 'tools' / 'cfgs' / 'kitti_models' / 'pointrcnn_iou_car.yaml'
+POINTRCNN_LAUNCHED = ('rotated_iou', 'fps', 'three_nn')
+# data/kitti holds Car and Pedestrian only (no Cyclist for the gt sampler or
+# the evaluator): the PointRCNN train and runner phases cut pointrcnn.yaml's
+# classes to those two, as kitti_second does
+FIXTURE_CLASSES = ['Car', 'Pedestrian']
+
+
+def fixture_batch(cfg, training, seed=SEED):
+    """The first BATCH samples of data/kitti's val split (or of its train
+    split, gt sampling and every augmentation drawn from RandomState(seed))
+    through the yaml's KittiDataset, collated, on the card."""
+    from fv2p_torch.tools import test as test_runner
+    from fv2p_torch.utils.synthetic import batch_to_torch
+    ds = test_runner.make_dataset(cfg, training=training, logger=quiet_logger(),
+                                  rng=np.random.RandomState(seed))
+    return batch_to_torch(ds.collate_batch([ds[i] for i in range(BATCH)]), 'cuda')
+
+
+def pointrcnn_sites(calls, batch_size):
+    """One PointRCNN pass's kernel calls by call site: B2 in the backbone
+    (a row a scan) and in the RoI head (a row a RoI: more rows than scans),
+    B3 at the backbone's FP levels, B1 in the NMS (and the IoU targets)."""
+    def only(name, keep=lambda c: True):
+        k = calls[name]
+        sub = Kernel(k.name, k.module, k.entries, k.source, k.replaces)
+        sub.calls = [c for c in k.calls if keep(c)]
+        return sub
+    return {'backbone': [only('fps', lambda c: c[1][0].shape[0] == batch_size),
+                         only('three_nn')],
+            'head': [only('fps', lambda c: c[1][0].shape[0] > batch_size)],
+            'nms': [only('rotated_iou')]}
+
+
+def site_rows(sites, kernels, rows, label):
+    """Each call site's calls against the plain versions and timed, under
+    `label`_<site>_* keys of the kernel rows."""
+    for site, subs in sites.items():
+        by_name = {k.name: Kernel(k.name, k.module, k.entries, k.source, k.replaces)
+                   for k in kernels}
+        by_name.update({k.name: k for k in subs})
+        train_kernel_rows(by_name, {n: len(k.calls) for n, k in by_name.items()}, rows,
+                          prefix=f'{label}_{site}')
+
+
+def pointrcnn_train_targets(out):
+    """Foreground points and RoIs of one PointRCNN train forward."""
+    return {'foreground_points': int((out['point_head_ret']['point_cls_labels'] > 0).sum()),
+            'foreground_rois': int(out['roi_head_ret']['reg_valid_mask'].sum()),
+            'sampled_rois': int(out['roi_head_ret']['reg_valid_mask'].numel())}
+
+
+# a PointRCNN train step from seeded weights: each gt box is written over
+# the box predictions of GT_PROPOSAL_COPIES points, its center moved by
+# N(0, GT_PROPOSAL_JITTER m) on each axis
+GT_PROPOSAL_COPIES, GT_PROPOSAL_JITTER = 4, 0.05
+
+
+def gt_proposals(point_head):
+    """Seeded weights propose no box at the RCNN's foreground IoU (0.55), so
+    their RoIs train no regression. A forward hook on `point_head` writes
+    GT_PROPOSAL_COPIES jittered copies of every gt box of the batch (drawn
+    from SEED, the same each step) over the first points' decoded boxes,
+    with a logit of 10 in the box's class and -10 in the others: the
+    proposal NMS (B1) keeps them, the RoI sampling finds foreground, and the
+    RCNN regression and corner terms train. The point head's own
+    predictions and losses are untouched. Returns the hook's handle."""
+    def hook(module, args, out):
+        gt = out['gt_boxes']
+        box, cls = out['batch_box_preds'], out['batch_cls_preds']
+        rep = gt.repeat_interleave(GT_PROPOSAL_COPIES, dim=1)          # (B, K, 8)
+        k = rep.shape[1]
+        gen = torch.Generator(device=gt.device).manual_seed(SEED)
+        noise = torch.randn(rep[..., :3].shape, generator=gen, device=gt.device)
+        boxes = torch.cat([rep[..., :3] + GT_PROPOSAL_JITTER * noise, rep[..., 3:7]], -1)
+        labels = (rep[..., 7].long() - 1).clamp(min=0)
+        logits = torch.nn.functional.one_hot(labels, cls.shape[-1]) * 20.0 - 10.0
+        real = (rep[..., 7] > 0)[..., None]
+        out['batch_box_preds'] = torch.cat(
+            [torch.where(real, boxes.to(box.dtype), box[:, :k]), box[:, k:]], 1)
+        out['batch_cls_preds'] = torch.cat(
+            [torch.where(real, logits.to(cls.dtype), cls[:, :k]), cls[:, k:]], 1)
+        return out
+    return point_head.register_forward_hook(hook)
+
+
+def kitti_pointrcnn_phase(kernels, rows, later):
+    """pointrcnn.yaml at full width on the first BATCH val scans of
+    data/kitti (16384 sampled points a scan), seeded weights, BatchNorm
+    calibrated on the batch. The model runs in f32 whatever the compute
+    dtype, as the JAX package's point modules do (no dtype on their
+    layers); it is built for bf16 as the runners build it. Counted: B2 six
+    times (the backbone's 4096 of 16384, 1024, 256 and 64 picks, the head's
+    128 of 512 and 32 of 128 in each of 400 RoI rows), B3 at the four FP
+    levels, B1 at least twice a scan, B4 never; each call site's calls held
+    to the plain versions and timed (`kitti_pointrcnn_<site>_*` keys), the
+    proposal and final NMS keeps identical on both routes, the f32 forward
+    through the kernels against the plain versions; the forward's median,
+    per module and peak memory, and each backbone ball query alone (at most
+    BALL_QUERY_GIB). Returns the record."""
+    from fv2p_torch.datasets import dataset_meta_from_cfg
+    label = 'kitti_pointrcnn'
+    cfg = load_cfg(POINTRCNN_CFG)
+    meta = dataset_meta_from_cfg(cfg.DATA_CONFIG, 'test')
+    batch = fixture_batch(cfg, training=False)
+    rec = {'points_per_scan': batch['points_valid'].sum(1).tolist(),
+           'points_cap': int(batch['points'].shape[1])}
+    model = make_model(cfg, meta, torch.bfloat16, calibrate_on=batch)
+    rec['parameters'] = sum(p.numel() for p in model.parameters())
+    post = int(cfg.MODEL.POST_PROCESSING.NMS_CONFIG.NMS_POST_MAXSIZE)
+    head_io = {}
+    hook = model.point_head.register_forward_hook(lambda m, a, o: head_io.update(
+        box=o['batch_box_preds'].clone(), cls=o['batch_cls_preds'].clone()))
+    out, calls, launches = counted_forward(kernels, model, batch, label, POINTRCNN_LAUNCHED)
+    hook.remove()
+    rec['launches'] = launches
+    rec['fps_shapes'] = [list(a[0].shape) + [a[2]] for _, a in calls['fps'].calls]
+    rec['three_nn_shapes'] = [[list(a[0].shape), list(a[2].shape)]
+                              for _, a in calls['three_nn'].calls]
+    if launches['fps'] != 6 or launches['three_nn'] != 4 or \
+            launches['rotated_iou'] < 2 * BATCH:
+        fail(f'{label}: launches {launches}, expected B2 6, B3 4, B1 at least {2 * BATCH}')
+    keys = ('batch_box_preds', 'batch_cls_preds', 'point_features')
+    rec['valid_detections'] = check_outputs(out, post, keys)
+    rec['proposals'] = grid_nms_keeps(kernels, model, label, head_io, out)
+    log(f'# {label}: {rec["parameters"]} parameters, {rec["points_per_scan"]} of '
+        f'{rec["points_cap"]} points a scan, {rec["valid_detections"]} valid detections; '
+        f'B2 calls {rec["fps_shapes"]}; B3 calls (sources, queries) {rec["three_nn_shapes"]}')
+    del out, head_io
+    sites = pointrcnn_sites(calls, BATCH)
+    site_rows(sites, kernels, rows, label)
+    later.extend((f'{label}_{site}', k) for site, subs in sites.items() for k in subs)
+    rec['f32_kernel_vs_plain_max_abs'] = f32_forward(
+        kernels, cfg, meta, batch, post, keys, label,
+        ('pred_boxes', 'pred_scores', 'batch_box_preds', 'batch_cls_preds'), calibrate=True)
+    rec.update(forward_stats(model, batch, label))
+    fps_row = next(r for r in rows if r['name'] == 'fps')
+    rec['head_fps_share_of_forward'] = fps_row[f'{label}_head_ms'] / rec['forward_ms']['median']
+    log(f'# {label}: the head\'s two B2 calls take {fps_row[f"{label}_head_ms"]:.3f} ms, '
+        f'{rec["head_fps_share_of_forward"]:.1%} of the forward (chain floor '
+        f'{fps_row[f"{label}_head_chain_floor_ms"]:.3f} ms); the backbone\'s four '
+        f'{fps_row[f"{label}_backbone_ms"]:.3f} ms')
+    rec['ball_queries'] = ball_query_stats(model, lambda: forward(model, batch), label)
+    del model, batch
+    torch.cuda.empty_cache()
+    return rec
+
+
+def kitti_pointrcnn_train_phase(kernels, rows):
+    """PointRCNN training on data/kitti's first BATCH train samples (gt
+    sampling and every augmentation; FIXTURE_CLASSES), the gt boxes among
+    the proposals (`gt_proposals`): 2 + 5 bf16 steps of pointrcnn.yaml (B1,
+    B2 six times and B3 every step, every loss term finite, the RCNN
+    regression above 0 in every step, foreground points and RoIs in the
+    first), one more step whose calls are held to the plain versions by
+    call site (the head's B2 on B * ROI_PER_IMAGE = 512 rows;
+    `kitti_pointrcnn_train_<site>_*` keys); one bf16 step of
+    pointrcnn_iou_car.yaml (finite terms, regression above 0); then
+    fv2p_torch.tools.test over the 24 val scans with seeded weights,
+    counted (B1, B2, B3), its calls held to the plain versions
+    (`kitti_pointrcnn_test_*` keys), the AP dict produced and finite.
+    Returns the record."""
+    import yaml
+    from fv2p_torch.datasets import dataset_meta_from_cfg
+    from fv2p_torch.ops import cuda as kcuda
+    label = 'kitti_pointrcnn_train'
+    cfg = load_cfg(POINTRCNN_CFG)
+    cfg.CLASS_NAMES = list(FIXTURE_CLASSES)
+    tmeta = dataset_meta_from_cfg(cfg.DATA_CONFIG, 'train')
+    batch = fixture_batch(cfg, training=True)
+    rec = {'gt_boxes': int((batch['gt_boxes'][..., 7] > 0).sum()),
+           'points_per_scan': batch['points_valid'].sum(1).tolist()}
+    step = make_train_step(cfg, tmeta, torch.bfloat16)
+    hook = gt_proposals(step.model.point_head)
+    trec = rec['train'] = timed_train_steps(kcuda, step, batch, POINTRCNN_LAUNCHED,
+                                            pointrcnn_train_targets)
+    first = trec['first_step_targets']
+    if first['foreground_points'] <= 0 or first['foreground_rois'] <= 0:
+        fail(f'{label}: first step targets {first}')
+    if not all(x > 0 for x in trec['loss_terms']['rcnn_loss_reg']):
+        fail(f'{label}: rcnn_loss_reg {trec["loss_terms"]["rcnn_loss_reg"]}')
+    if any(n['fps'] != 6 or n['three_nn'] != 4 for n in trec['launches_per_step']):
+        fail(f'{label}: launches per step {trec["launches_per_step"]}')
+    log(f'# {label} bf16 step at batch {BATCH} ({rec["gt_boxes"]} gt boxes), ms median '
+        f'(quartiles) of {TRAIN_TIMED}: ' + ', '.join(
+            f'{k} {v["median"]:.2f} ({v["q1"]:.2f}-{v["q3"]:.2f})' for k, v in trec['ms'].items())
+        + f'; peak {trec["peak_mem_gib"]:.2f} GiB; loss '
+        f'{[round(x, 3) for x in trec["loss_terms"]["loss"]]}; first step {first}')
+    tcalls, rec['launches'] = captured_train_calls(kernels, step, batch, POINTRCNN_LAUNCHED)
+    head_rows = sorted({a[0].shape[0] for _, a in tcalls['fps'].calls if a[0].shape[0] > BATCH})
+    rois = BATCH * int(cfg.MODEL.ROI_HEAD.TARGET_CONFIG.ROI_PER_IMAGE)
+    if head_rows != [rois]:
+        fail(f'{label}: the head\'s B2 calls take {head_rows} rows, expected {rois}')
+    site_rows(pointrcnn_sites(tcalls, BATCH), kernels, rows, label)
+    hook.remove()
+    del step, tcalls, batch
+    torch.cuda.empty_cache()
+
+    icfg = load_cfg(POINTRCNN_IOU_CAR_CFG)
+    istep = make_train_step(icfg, dataset_meta_from_cfg(icfg.DATA_CONFIG, 'train'),
+                            torch.bfloat16)
+    hook = gt_proposals(istep.model.point_head)
+    terms, _, _ = counted_train_step(kcuda, istep, fixture_batch(icfg, training=True),
+                                     POINTRCNN_LAUNCHED)
+    hook.remove()
+    rec['iou_car_terms'] = {k: float(v) for k, v in terms.items()}
+    if not all(np.isfinite(v) for v in rec['iou_car_terms'].values()) or \
+            rec['iou_car_terms']['rcnn_loss_reg'] <= 0:
+        fail(f'{label}: pointrcnn_iou_car.yaml step terms {rec["iou_car_terms"]}')
+    log(f'# {label}: pointrcnn_iou_car.yaml bf16 step terms {rec["iou_car_terms"]}')
+    del istep
+    torch.cuda.empty_cache()
+
+    out = REPO / 'output' / 'chip_smoke' / 'kitti_pointrcnn'
+    out.mkdir(parents=True, exist_ok=True)
+    cfg_d = yaml.safe_load(POINTRCNN_CFG.read_text())
+    cfg_d['CLASS_NAMES'] = list(FIXTURE_CLASSES)
+    cfg_d['DATA_CONFIG']['_BASE_CONFIG_'] = str(
+        REPO / 'tools' / cfg_d['DATA_CONFIG']['_BASE_CONFIG_'])
+    cfg_d['DATA_CONFIG']['DATA_PATH'] = str(KITTI)
+    cfg_file = out / 'pointrcnn_car_pedestrian.yaml'
+    cfg_file.write_text(yaml.safe_dump(cfg_d))
+    t0 = time.perf_counter()
+    ret, rec['test_launches'], _ = counted_test_run(
+        kernels, rows, 'kitti_pointrcnn_test',
+        ['--cfg_file', str(cfg_file), '--workers', str(SHORT_RUN_WORKERS), '--output_dir',
+         str(out)], POINTRCNN_LAUNCHED)
+    rec['test_s'] = time.perf_counter() - t0
+    ap = {k: v for k, v in ret.items() if k.startswith('Car_3d/')}
+    if not ap or any(not np.isfinite(v) for v in ret.values()):
+        fail(f'{label}: no Car AP or a test result not finite: {ret}')
+    rec['test'] = {k: ret[k] for k in ('sec_per_example', 'loader_wait_s_per_batch',
+                                       'forward_ms_median')}
+    rec['test_ap_car_3d'] = ap
+    log(f'# kitti_pointrcnn_test: {rec["test_s"]:.1f} s over the val scans, '
+        f'{ret["sec_per_example"] * 1e3:.2f} ms a scan, forward median '
+        f'{ret["forward_ms_median"]:.2f} ms a batch; launches {rec["test_launches"]}; {ap}')
+    return rec
+
+
+# ------------------------------------------------------ data parallel
+
+DDP_TRAIN_SCANS = 8          # the torchrun run's train split: 4 steps at batch 2
+DDP_GLOBAL_BATCH = 4         # (b): two ranks of 2 scans on the one card
+# (a): the first step's terms of the two runs must agree to this relative
+# difference, later steps (unordered atomics in the backward, amplified by
+# Adam) to DDP_LATER_REL
+DDP_FIRST_REL, DDP_LATER_REL = 1e-5, 1e-3
+
+
+def ddp_cfg_file(out):
+    """fv2p.yaml on data/kitti (the peak learning rate at KITTI_TRAIN_LR, as
+    kitti_train) with the train split cut to its first DDP_TRAIN_SCANS
+    scans, written into `out`."""
+    import pickle
+    import yaml
+    cfg_d = yaml.safe_load(CFG.read_text())
+    cfg_d['DATA_CONFIG']['_BASE_CONFIG_'] = str(
+        REPO / 'tools' / cfg_d['DATA_CONFIG']['_BASE_CONFIG_'])
+    cfg_d['DATA_CONFIG']['DATA_PATH'] = str(KITTI)
+    with open(KITTI / 'kitti_infos_train.pkl', 'rb') as f:
+        infos = pickle.load(f)[:DDP_TRAIN_SCANS]
+    info = out / f'kitti_infos_train_first{DDP_TRAIN_SCANS}.pkl'
+    info.write_bytes(pickle.dumps(infos))
+    cfg_d['DATA_CONFIG']['INFO_PATH'] = {'train': [str(info)],
+                                         'test': [str(KITTI / 'kitti_infos_val.pkl')]}
+    cfg_d['OPTIMIZATION']['LR'] = KITTI_TRAIN_LR
+    path = out / 'fv2p_fixture.yaml'
+    path.write_text(yaml.safe_dump(cfg_d))
+    return path
+
+
+def _gloo_rank(local, world, port, fn, args, result_path):
+    """One rank of a gloo group on card 0 (NCCL refuses two ranks on one
+    card): fn(*args), rank 0's return value saved to result_path."""
+    import os
+    import torch.distributed as dist
+    os.environ.update(RANK=str(local), LOCAL_RANK='0', WORLD_SIZE=str(world),
+                      MASTER_ADDR='127.0.0.1', MASTER_PORT=str(port))
+    torch.cuda.set_device(0)
+    dist.init_process_group('gloo', init_method='env://')
+    try:
+        out = fn(*args)
+        if local == 0:
+            torch.save(out, result_path)
+    finally:
+        dist.destroy_process_group()
+
+
+def gloo_ranks_on_one_card(fn, world, args, result_path):
+    """fn(*args) in `world` spawned processes, all on card 0, joined over
+    gloo; returns rank 0's result. A rank that fails ends the others and
+    the call fails."""
+    import torch.multiprocessing as mp
+    from fv2p_torch import parallel
+    mp.start_processes(_gloo_rank, nprocs=world, start_method='spawn',
+                       args=(world, parallel.free_port(), fn, args, str(result_path)))
+    return torch.load(result_path, weights_only=False)
+
+
+def _flat_state(module):
+    """{name: CPU tensor} of the parameters and the BatchNorm statistics."""
+    return {k: v.detach().float().cpu().clone() for k, v in module.state_dict().items()}
+
+
+def _ddp_step_rank(cfg_path):
+    """(b), one rank: the f32 FV2P train step of its half of the global
+    batch through TrainStep over DDP (gloo); its averaged gradients, then
+    its parameters and statistics after the update, and the loss terms."""
+    from fv2p_torch import parallel
+    from fv2p_torch.datasets import dataset_meta_from_cfg
+    cfg = load_cfg(cfg_path)
+    meta = dataset_meta_from_cfg(cfg.DATA_CONFIG, 'train')
+    batch, _, _ = train_inputs(cfg, meta, DDP_GLOBAL_BATCH, TRAIN_POINTS)
+    local = parallel.slice_batch(batch, parallel.global_batch_slice(
+        DDP_GLOBAL_BATCH, parallel.rank(), parallel.world_size()))
+    with full_f32():
+        step = make_train_step(cfg, meta, None)
+        step.model = parallel.wrap_model(step.model)
+        loss, terms, _ = step.forward_loss(local)
+        step.backward(loss)
+        grads = {n: p.grad.detach().cpu().clone() for n, p in step.module.named_parameters()}
+        step.update()
+        sync()
+    return {'terms': {k: float(v) for k, v in parallel.mean_over_ranks(terms).items()},
+            'grads': grads, 'state': _flat_state(step.module)}
+
+
+def ddp_halves_reference(cfg_path):
+    """(b), the reference: the same step computed in this process, the two
+    halves in turn, their gradients, loss terms and new running statistics
+    averaged, then one update with the averaged gradients."""
+    from fv2p_torch.datasets import dataset_meta_from_cfg
+    from fv2p_torch.models.layers import BatchNorm
+    from fv2p_torch.ops.sparse.conv import MaskedBatchNorm
+    cfg = load_cfg(cfg_path)
+    meta = dataset_meta_from_cfg(cfg.DATA_CONFIG, 'train')
+    batch, _, _ = train_inputs(cfg, meta, DDP_GLOBAL_BATCH, TRAIN_POINTS)
+    from fv2p_torch import parallel
+    half = DDP_GLOBAL_BATCH // 2
+    grads, terms, stats = [], [], []
+    with full_f32():
+        for h in range(2):
+            local = parallel.slice_batch(batch, slice(h * half, (h + 1) * half))
+            step = make_train_step(cfg, meta, None)
+            loss, t, _ = step.forward_loss(local)
+            step.backward(loss)
+            grads.append({n: p.grad.detach().clone() for n, p in step.module.named_parameters()})
+            terms.append({k: float(v) for k, v in t.items()})
+            stats.append({n: (m.running_mean.clone(), m.running_var.clone())
+                          for n, m in step.module.named_modules()
+                          if isinstance(m, (BatchNorm, MaskedBatchNorm))})
+            if h == 0:
+                del step
+        for n, p in step.module.named_parameters():
+            p.grad = (grads[0][n] + grads[1][n]) / 2
+        for n, m in step.module.named_modules():
+            if n in stats[0]:
+                m.running_mean.copy_((stats[0][n][0] + stats[1][n][0]) / 2)
+                m.running_var.copy_((stats[0][n][1] + stats[1][n][1]) / 2)
+        avg = {n: p.grad.detach().cpu().clone() for n, p in step.module.named_parameters()}
+        before = _flat_state(step.module)
+        lr = step.optimizer.hyperparams()[0]
+        step.update()
+        sync()
+    return {'terms': {k: (terms[0][k] + terms[1][k]) / 2 for k in terms[0]},
+            'grads': avg, 'state': _flat_state(step.module), 'state0': before, 'lr': lr}
+
+
+def compare_ddp_step(got, ref, wd):
+    """(b): loss terms within 1e-5 relative; every gradient within 1e-4
+    max|g| + 1e-7 (a bias that a train-mode BatchNorm normalises away is
+    noise under 1e-5 of its conv's kernel gradient on both sides); the
+    running statistics within 1e-5 max + 1e-7; every parameter within
+    1e-4 max|ref| + 1e-7 of the reference, except where the gradient is
+    rounding noise (at most twice its tolerance), whose Adam step of about
+    lr sign(g) is held to at most lr on both sides."""
+    rel = {k: abs(got['terms'][k] - v) / max(abs(v), 1e-30) for k, v in ref['terms'].items()}
+    if max(rel.values()) > 1e-5:
+        fail(f'ddp (b): loss terms differ from the two halves in turn: {rel}')
+    worst_g = 0.0
+    noise = {}
+    for n, g in ref['grads'].items():
+        gk, gmax = got['grads'][n], float(g.abs().max())
+        err = float((gk - g).abs().max())
+        if zero_by_construction(n):
+            scale = float(ref['grads'][n[:-len('bias')] + 'kernel'].abs().max())
+            if max(gmax, float(gk.abs().max())) > 1e-5 * scale:
+                fail(f'ddp (b): {n} should be noise, is {gmax}')
+            noise[n] = torch.ones_like(g, dtype=torch.bool)
+            continue
+        if err > 1e-4 * gmax + 1e-7:
+            fail(f'ddp (b): averaged gradient {n} differs by {err} > 1e-4 * {gmax} + 1e-7')
+        worst_g = max(worst_g, err / (gmax + 1e-30))
+        noise[n] = g.abs() <= 2 * (1e-4 * gmax + 1e-7)
+    worst_p = worst_s = 0.0
+    n_noise = 0
+    for n, ref_t in ref['state'].items():
+        got_t = got['state'][n]
+        if n.endswith('running_mean') or n.endswith('running_var'):
+            err = float((got_t - ref_t).abs().max())
+            if err > 1e-5 * float(ref_t.abs().max()) + 1e-7:
+                fail(f'ddp (b): averaged statistic {n} differs by {err}')
+            worst_s = max(worst_s, err / (float(ref_t.abs().max()) + 1e-30))
+            continue
+        mask = noise[n]
+        n_noise += int(mask.sum())
+        err = float((got_t - ref_t).abs().masked_fill(mask, 0.0).max())
+        if err > 1e-4 * float(ref_t.abs().max()) + 1e-7:
+            fail(f'ddp (b): updated parameter {n} differs by {err}')
+        p0 = ref['state0'][n]
+        for side in (got_t, ref_t):
+            move = (side - p0 + ref['lr'] * wd * p0).abs()[mask]
+            if move.numel() and float(move.max()) > ref['lr'] * (1 + 1e-4):
+                fail(f'ddp (b): parameter {n} moved by {float(move.max())} > lr where its '
+                     f'gradient is noise')
+        worst_p = max(worst_p, err / (float(ref_t.abs().max()) + 1e-30))
+    return {'loss_rel_diff_max': max(rel.values()), 'grad_worst_rel_to_max': worst_g,
+            'param_worst_rel_to_max': worst_p, 'stat_worst_rel_to_max': worst_s,
+            'noise_elements': n_noise}
+
+
+def _eval_rank(argv):
+    """(c), one rank: the test runner inside the group (it joins it)."""
+    from fv2p_torch.tools import test as test_runner
+    return test_runner.main(argv)
+
+
+def kitti_txt_rows(eval_dir):
+    """{frame: [(class, numbers)]} of the KITTI-format detection files."""
+    out = {}
+    for f in sorted(Path(eval_dir).glob('[0-9]*.txt')):
+        out[f.name] = [(ln.split()[0], np.array(ln.split()[1:], float))
+                       for ln in f.read_text().splitlines()]
+    return out
+
+
+def wrapper_cost(cfg, meta):
+    """DDP's cost at one rank over NCCL: bf16 FV2P train steps at batch
+    TRAIN_BATCH on FV2P's train batch, plain TrainStep against TrainStep over
+    the wrapper (their own seeded weights each), in turns (plain, DDP, DDP,
+    plain, twice), CUDA events around each step; the medians and each
+    block's. The step is host-bound: a difference within the blocks' spread
+    says nothing."""
+    import os
+    import torch.distributed as dist
+    from fv2p_torch import parallel
+    batch, _, _ = train_inputs(cfg, meta, TRAIN_BATCH, TRAIN_POINTS)
+    os.environ.update(RANK='0', LOCAL_RANK='0', WORLD_SIZE='1', MASTER_ADDR='127.0.0.1',
+                      MASTER_PORT=str(parallel.free_port()))
+    parallel.init_process_group('cuda')
+    try:
+        steps = {'plain': make_train_step(cfg, meta, torch.bfloat16),
+                 'ddp': make_train_step(cfg, meta, torch.bfloat16)}
+        steps['ddp'].model = parallel.wrap_model(steps['ddp'].model)
+        ms = {'plain': [], 'ddp': []}
+        blocks = {'plain': [], 'ddp': []}
+        for name in ('plain', 'ddp', 'ddp', 'plain') * 2:
+            block = []
+            for i in range(TRAIN_WARMUP + TRAIN_TIMED):
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                ev[0].record()
+                steps[name].step(batch)
+                ev[1].record()
+                sync()
+                if i >= TRAIN_WARMUP:
+                    block.append(ev[0].elapsed_time(ev[1]))
+            ms[name] += block
+            blocks[name].append(float(np.median(block)))
+    finally:
+        dist.destroy_process_group()
+        for key in ('RANK', 'LOCAL_RANK', 'WORLD_SIZE', 'MASTER_ADDR', 'MASTER_PORT'):
+            os.environ.pop(key, None)
+    out = {k: {'median': float(np.median(v)), 'block_medians': blocks[k], 'all': v}
+           for k, v in ms.items()}
+    out['wrapper_ms'] = out['ddp']['median'] - out['plain']['median']
+    return out
+
+
+def ddp_phase():
+    """Data parallel on the one card, in three parts.
+    (a) ``torchrun --standalone --nproc_per_node 1 -m fv2p_torch.tools.train
+    --dist`` (NCCL) for one epoch of fv2p.yaml on data/kitti's first
+    DDP_TRAIN_SCANS train scans at batch 2, against the same run without
+    --dist, both --fix_random_seed: the loss terms of every step agree
+    (DDP_FIRST_REL on the first, DDP_LATER_REL after); and DDP's cost a
+    step at one rank (``wrapper_cost``).
+    (b) two gloo ranks on the one card (NCCL refuses two ranks on one
+    device): one f32 FV2P train step (no TF32) at global batch
+    DDP_GLOBAL_BATCH through TrainStep over DDP against this process
+    computing the two halves in turn and averaging them
+    (``compare_ddp_step``).
+    (c) the test runner in two gloo ranks on the card (each joins the group
+    it finds) over the 24 val scans in f32, against one rank: the merged
+    detection files in dataset order (classes and counts identical,
+    numbers within one unit of their 4th decimal) and the recall and AP
+    (within 1e-4).
+    NCCL at more than one rank is not checked: the machine has one card.
+    Returns the record."""
+    import json as json_mod
+    import shutil
+    from fv2p_torch.datasets import dataset_meta_from_cfg
+    from fv2p_torch.tools import test as test_runner
+    out = REPO / 'output' / 'chip_smoke' / 'ddp'
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    cfg_file = ddp_cfg_file(out)
+    rec = {}
+
+    # (a)
+    common = ['-m', 'fv2p_torch.tools.train', '--cfg_file', str(cfg_file), '--workers', '0',
+              '--batch_size', '2', '--epochs', '1', '--fix_random_seed']
+    runs = {}
+    for name, head in (('torchrun', [sys.executable, '-m', 'torch.distributed.run',
+                                     '--standalone', '--nproc_per_node', '1']),
+                       ('single', [sys.executable])):
+        t0 = time.perf_counter()
+        extra = ['--dist'] if name == 'torchrun' else []
+        subprocess.run(head + common + extra + ['--output_dir', str(out / name)], cwd=REPO,
+                       check=True, timeout=600, stdout=subprocess.DEVNULL)
+        runs[name] = [json_mod.loads(ln) for ln in
+                      (out / name / 'metrics.jsonl').read_text().splitlines()]
+        rec[f'a_{name}_s'] = time.perf_counter() - t0
+    a, b = runs['torchrun'], runs['single']
+    if len(a) != len(b) or len(a) != DDP_TRAIN_SCANS // 2:
+        fail(f'ddp (a): {len(a)} steps with --dist, {len(b)} without')
+    rel = [max(abs(x[k] - y[k]) / max(abs(y[k]), 1e-30) for k in y if k not in ('epoch', 'it'))
+           for x, y in zip(a, b)]
+    rec['a_step_rel_diff'] = rel
+    if rel[0] > DDP_FIRST_REL or max(rel) > DDP_LATER_REL:
+        fail(f'ddp (a): loss terms with --dist differ from the run without by {rel} '
+             f'(relative, by step)')
+    log(f'# ddp (a): torchrun --nproc_per_node 1 --dist (NCCL) against no --dist, '
+        f'{len(a)} steps: largest relative difference of a loss term by step {rel}; '
+        f'losses {[round(s["loss"], 4) for s in a]} ({rec["a_torchrun_s"]:.1f} s and '
+        f'{rec["a_single_s"]:.1f} s a run)')
+    cfg = load_cfg(CFG)
+    rec['wrapper'] = wrapper_cost(cfg, dataset_meta_from_cfg(cfg.DATA_CONFIG, 'train'))
+    w = rec['wrapper']
+    log(f'# ddp (a): bf16 train step at batch {TRAIN_BATCH}, median of {4 * TRAIN_TIMED}: '
+        f'plain {w["plain"]["median"]:.2f} ms (blocks '
+        f'{[round(x, 2) for x in w["plain"]["block_medians"]]}), over DDP (NCCL, one rank) '
+        f'{w["ddp"]["median"]:.2f} ms (blocks {[round(x, 2) for x in w["ddp"]["block_medians"]]}): '
+        f'the wrapper costs {w["wrapper_ms"]:.2f} ms a step')
+    torch.cuda.empty_cache()
+
+    # (b)
+    t0 = time.perf_counter()
+    got = gloo_ranks_on_one_card(_ddp_step_rank, 2, (str(CFG),), out / 'b_rank0.pt')
+    ref = ddp_halves_reference(CFG)
+    rec['b'] = compare_ddp_step(got, ref, float(cfg.OPTIMIZATION.WEIGHT_DECAY))
+    rec['b']['s'] = time.perf_counter() - t0
+    log(f'# ddp (b): two gloo ranks on the card, f32 FV2P step at global batch '
+        f'{DDP_GLOBAL_BATCH}, against the two halves in turn: {rec["b"]}')
+    del got, ref
+    torch.cuda.empty_cache()
+
+    # (c)
+    t0 = time.perf_counter()
+    argv = ['--cfg_file', str(cfg_file), '--workers', '0', '--batch_size', str(KITTI_BATCH),
+            '--dtype', 'float32', '--save_to_file']
+    one = test_runner.main(argv + ['--output_dir', str(out / 'c_one')])
+    two = gloo_ranks_on_one_card(_eval_rank, 2, (argv + ['--output_dir', str(out / 'c_two')],),
+                                 out / 'c_rank0.pt')
+    keys = sorted(k for k in one if '/' in k)
+    ap_diff = max(abs(two[k] - one[k]) for k in keys)
+    txt_one, txt_two = (kitti_txt_rows(out / r / 'eval') for r in ('c_one', 'c_two'))
+    if sorted(txt_one) != sorted(txt_two) or len(txt_one) != 24:
+        fail(f'ddp (c): {len(txt_two)} detection files from two ranks, {len(txt_one)} from one')
+    num_diff, lines = 0.0, 0
+    for frame, rows_one in txt_one.items():
+        rows_two = txt_two[frame]
+        if [r[0] for r in rows_two] != [r[0] for r in rows_one]:
+            fail(f'ddp (c): frame {frame}: classes or counts differ between 2 ranks and 1')
+        for (_, x), (_, y) in zip(rows_two, rows_one):
+            num_diff = max(num_diff, float(np.abs(x - y).max()))
+        lines += len(rows_one)
+    rec['c'] = {'ap_max_abs_diff': ap_diff, 'txt_max_abs_diff': num_diff, 'detections': lines,
+                'keys': len(keys), 's': time.perf_counter() - t0,
+                'ap_car_3d': {k: one[k] for k in keys if k.startswith('Car_3d/')}}
+    if sorted(two) != sorted(one) or ap_diff > 1e-4 or num_diff > 1.5e-4 or lines == 0:
+        fail(f'ddp (c): two ranks against one: {rec["c"]}')
+    log(f'# ddp (c): the test runner in two gloo ranks on the card against one rank, '
+        f'{lines} detections over 24 scans: files in dataset order, largest difference of '
+        f'a number {num_diff}, of {len(keys)} recall and AP values {ap_diff}')
+    return rec
+
+
 T_START = time.perf_counter()
 
 
@@ -3852,6 +4476,16 @@ def main():
     wrec['runner'] = waymo_runner_phase(kernels, rows)
     lap('waymo_runner')
 
+    # 9j. PointRCNN on data/kitti at full width: eval, train steps and the
+    # test runner
+    prec = {'eval': kitti_pointrcnn_phase(kernels, rows, later)}
+    lap('kitti_pointrcnn')
+    prec['train'] = kitti_pointrcnn_train_phase(kernels, rows)
+    lap('kitti_pointrcnn_train')
+    # 9k. data parallel: torchrun at one rank, two gloo ranks on the card
+    ddp_rec = ddp_phase()
+    lap('ddp')
+
     # 10. under the profiler and the sync debug mode, after every timed pass
     record.update(profile_stats(model, batch, 'fv2p'))
     mrec.update(profile_stats(mgaf, batch, 'mgaf'))
@@ -3898,7 +4532,8 @@ def main():
     record.update(launches=launches, kernels=rows, nvidia_smi=smi,
                   valid_detections=n_valid, mgaf=mrec, train=trec, mgaf_train=mtrec,
                   kitti=krec, device_rulebooks=drec, zoo=zrec, nuscenes=nrec, grid=grec,
-                  waymo=wrec, phase_s=phase_s, wall_s=time.perf_counter() - T_START)
+                  waymo=wrec, pointrcnn=prec, ddp=ddp_rec, phase_s=phase_s,
+                  wall_s=time.perf_counter() - T_START)
     log(f'# seconds by phase: { {k: round(v, 1) for k, v in phase_s.items()} }')
     log(f'# chip_smoke.py wall time {record["wall_s"]:.1f} s')
 

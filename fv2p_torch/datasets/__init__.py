@@ -7,6 +7,8 @@ import numpy as np
 import torch
 import torch.utils.data
 
+from .. import parallel
+
 
 def dataset_meta_from_cfg(data_cfg, split='train'):
     """Static model-construction metadata from a DATA_CONFIG: grid and voxel
@@ -79,18 +81,53 @@ def batch_to_numpy(batch):
     return {k: conv(v) for k, v in batch.items()}
 
 
-def build_dataloader(dataset, batch_size, workers, training, pin_memory=False):
-    """A DataLoader over ``dataset`` (shuffled, last partial batch dropped
-    when training) whose batches hold tensors (``collate_to_tensors``),
-    copied into pinned memory when ``pin_memory``. Workers are spawned, not
-    forked (the main process holds a CUDA context, which a forked child
-    cannot use), persist across epochs and seed their dataset copy's
-    generator from torch's worker seed."""
+class GlobalBatchSampler(torch.utils.data.Sampler):
+    """The training order of rank ``rank`` of ``world``: each epoch one
+    permutation of the ``n`` samples, the same on every rank, cut into
+    global batches of ``batch_size`` (a partial last one dropped), of which
+    the rank yields its slice (``parallel.global_batch_slice``). So rank r's
+    step k takes the samples that JAX's device r takes at step k, and the
+    steps of an epoch do not depend on the number of ranks. The epoch's seed
+    is drawn from torch's global generator on rank 0, as ``RandomSampler``
+    draws it, and broadcast: with one rank this is ``RandomSampler`` with
+    the last partial batch dropped."""
+
+    def __init__(self, n, batch_size, rank=0, world=1):
+        self.n, self.batch_size = n, batch_size
+        self.part = parallel.global_batch_slice(batch_size, rank, world)
+
+    def __iter__(self):
+        seed = parallel.broadcast_int(torch.empty((), dtype=torch.int64).random_().item())
+        perm = torch.randperm(self.n, generator=torch.Generator().manual_seed(seed)).tolist()
+        b = self.batch_size
+        for k in range(self.n // b):
+            yield from perm[k * b:(k + 1) * b][self.part]
+
+    def __len__(self):
+        return self.n // self.batch_size * (self.part.stop - self.part.start)
+
+
+def build_dataloader(dataset, batch_size, workers, training, pin_memory=False, rank=0,
+                     world=1):
+    """A DataLoader over ``dataset`` whose batches hold tensors
+    (``collate_to_tensors``), copied into pinned memory when ``pin_memory``.
+    Training: rank ``rank`` of ``world`` takes its slice of each shuffled
+    global batch of ``batch_size`` (``GlobalBatchSampler``), batch_size /
+    world samples a step. Eval: the rank takes the samples ``rank::world``
+    (``parallel.stride_shard``) in batches of ``batch_size``. Workers are
+    spawned, not forked (the main process holds a CUDA context, which a
+    forked child cannot use), persist across epochs and seed their dataset
+    copy's generator from torch's worker seed."""
     from .dataset import worker_init_fn
+    if training:
+        sampler = GlobalBatchSampler(len(dataset), batch_size, rank, world)
+        batch_size = batch_size // world
+    else:
+        sampler = parallel.stride_shard(len(dataset), rank, world) if world > 1 else None
     return torch.utils.data.DataLoader(
-        dataset, batch_size=batch_size, num_workers=workers, shuffle=training,
+        dataset, batch_size=batch_size, num_workers=workers, sampler=sampler,
         collate_fn=functools.partial(collate_to_tensors, dataset.collate_batch),
-        drop_last=training, pin_memory=pin_memory,
+        pin_memory=pin_memory,
         worker_init_fn=worker_init_fn if workers > 0 else None,
         persistent_workers=workers > 0,
         multiprocessing_context='spawn' if workers > 0 else None)

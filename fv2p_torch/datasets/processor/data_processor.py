@@ -26,6 +26,10 @@ class DataProcessor:
         self.mode = 'train' if training else 'test'
         self.voxel_generator = None
         self.max_voxels = None
+        # a point-only pipeline (PointRCNN: no transform_points_to_voxels)
+        # has no grid; JAX's DataProcessor leaves these unset and its dataset
+        # then fails to build for such a yaml
+        self.grid_size = self.voxel_size = None
         self.data_processor_queue = []
         for cur_cfg in processor_configs:
             cur_processor = getattr(self, cur_cfg.NAME)(config=cur_cfg)

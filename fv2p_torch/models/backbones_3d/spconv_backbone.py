@@ -239,5 +239,6 @@ BACKBONES = {'VoxelResBackBone8x': VoxelResBackBone8x,
 
 
 def reads_host_tables(backbone_name):
-    """Whether the named backbone takes the loader's host rulebooks."""
-    return BACKBONES[backbone_name].host_tables
+    """Whether the named backbone takes the loader's host rulebooks (a
+    point backbone, PointNet2MSG, takes no voxels at all)."""
+    return backbone_name in BACKBONES and BACKBONES[backbone_name].host_tables

@@ -1,8 +1,8 @@
 """Config-driven detector assembly (counterpart of
 ``fv2p_tpu/models/detectors/detector3d_template.py``), restricted to the
 detectors and modules ported so far: FV2P, MGAF-3DSSD, SECOND and
-PointPillar (with the single or the multihead anchor head), PV-RCNN and
-Voxel R-CNN, inference and training.
+PointPillar (with the single or the multihead anchor head), PV-RCNN,
+Voxel R-CNN and PointRCNN, inference and training.
 
 Each of the 9 slots of the module topology is built iff its config key
 exists, and the forward runs the built slots in that order on one batch
@@ -20,14 +20,17 @@ from ..backbones_2d.map_to_bev.height_compression import HeightCompression
 from ..backbones_2d.map_to_bev.pointpillar_scatter import PointPillarScatter
 from ..backbones_3d.pfe.residual_v2p_decoder import ResidualVoxelToPointDecoder
 from ..backbones_3d.pfe.voxel_set_abstraction import VoxelSetAbstraction
+from ..backbones_3d.pointnet2_backbone import PointNet2MSG
 from ..backbones_3d.spconv_backbone import BACKBONES
 from ..backbones_3d.vfe.mean_vfe import MeanVFE
 from ..backbones_3d.vfe.pillar_vfe import PillarVFE
 from ..dense_heads.anchor_head import AnchorHeadSingle, anchor_head_loss
 from ..dense_heads.anchor_head_multi import AnchorHeadMulti, anchor_head_multi_loss
 from ..dense_heads.center_af_head import CenterAFHeadSingle, center_af_head_loss
+from ..dense_heads.point_head_box import PointHeadBox, point_head_box_loss
 from ..dense_heads.point_head_simple import PointHeadSimple, point_head_loss
 from ..roi_heads.iouguided_roi_head import IoUGuidedRoIHead, roi_head_loss
+from ..roi_heads.pointrcnn_head import PointRCNNHead, pointrcnn_head_loss
 from ..roi_heads.pvrcnn_head import PVRCNNHead, pvrcnn_head_loss
 from ..roi_heads.voxelrcnn_head import VoxelRCNNHead, voxelrcnn_head_loss
 
@@ -42,14 +45,15 @@ _SLOT_KEYS = {'vfe': 'VFE', 'backbone_3d': 'BACKBONE_3D',
               'post_pfe': 'POST_PFE', 'point_head': 'POINT_HEAD',
               'roi_head': 'ROI_HEAD'}
 _PORTED = {'VFE': ('MeanVFE', 'PillarVFE'),
-           'BACKBONE_3D': ('VoxelResBackBone8x', 'VoxelBackBone8x'),
+           'BACKBONE_3D': ('VoxelResBackBone8x', 'VoxelBackBone8x', 'PointNet2MSG'),
            'MAP_TO_BEV': ('HeightCompression', 'PointPillarScatter'),
            'PFE': ('VoxelSetAbstraction',),
            'BACKBONE_2D': ('BaseBEVBackbone', 'DCNBEVBackbone'),
            'DENSE_HEAD': ('AnchorHeadSingle', 'AnchorHeadMulti', 'CenterAFHeadSingle'),
            'POST_PFE': ('ResidualVoxelToPointDecoder',),
-           'POINT_HEAD': ('PointHeadSimple',),
-           'ROI_HEAD': ('IoUGuidedRoIHead', 'PVRCNNHead', 'VoxelRCNNHead')}
+           'POINT_HEAD': ('PointHeadSimple', 'PointHeadBox'),
+           'ROI_HEAD': ('IoUGuidedRoIHead', 'PVRCNNHead', 'VoxelRCNNHead', 'PointRCNNHead',
+                        'PointRCNNIoUHead')}
 
 
 def _not_ported(what):
@@ -62,8 +66,8 @@ class Detector3DTemplate(nn.Module):
     """Builds the slots its config names; eval-mode forward through them,
     then ``final_predictions``: IoU-score-ranked NMS
     (``post_processing_withfgscores``) for FV2P and MGAF-3DSSD, cls-score
-    NMS (``post_processing``) for SECOND, PointPillar, PV-RCNN and Voxel
-    R-CNN."""
+    NMS (``post_processing``) for SECOND, PointPillar, PV-RCNN, Voxel
+    R-CNN and PointRCNN."""
 
     def __init__(self, model_cfg, num_class, class_names, dataset_meta,
                  compute_dtype=None):
@@ -95,6 +99,8 @@ class Detector3DTemplate(nn.Module):
 
     def _build_backbone_3d(self):
         cfg, meta = self.model_cfg.BACKBONE_3D, self.dataset_meta
+        if cfg.NAME == 'PointNet2MSG':
+            return PointNet2MSG(cfg, meta['num_point_features'])
         return BACKBONES[cfg.NAME](meta['num_point_features'], meta['grid_size'], self.compute_dtype,
                    level_caps=cfg.get('LEVEL_CAPACITIES'))
 
@@ -147,6 +153,8 @@ class Detector3DTemplate(nn.Module):
 
     def _build_point_head(self):
         cfg = self.model_cfg.POINT_HEAD
+        if cfg.NAME == 'PointHeadBox':
+            return PointHeadBox(cfg, self.backbone_3d.num_point_features, self.num_class)
         before = cfg.get('USE_POINT_FEATURES_BEFORE_FUSION', False)
         return PointHeadSimple(cfg, self._point_channels(before), self.num_class,
                                self.compute_dtype)
@@ -156,6 +164,10 @@ class Detector3DTemplate(nn.Module):
         roi_classes = 1 if cfg.get('CLASS_AGNOSTIC', True) else self.num_class
         if cfg.NAME == 'PVRCNNHead':
             return PVRCNNHead(cfg, roi_classes, self._point_channels())
+        if cfg.NAME in ('PointRCNNHead', 'PointRCNNIoUHead'):
+            # one module for both: TARGET_CONFIG.CLS_SCORE_TYPE selects the
+            # rcnn_iou labels
+            return PointRCNNHead(cfg, roi_classes, self.backbone_3d.num_point_features)
         if cfg.NAME == 'VoxelRCNNHead':
             return VoxelRCNNHead(cfg, roi_classes, meta['point_cloud_range'],
                                  meta['voxel_size'], self.backbone_3d.level_channels)
@@ -291,10 +303,19 @@ class VoxelRCNN(Detector3DTemplate):
         return self.post_processing(batch_dict)
 
 
+class PointRCNN(Detector3DTemplate):
+    """Point-based two-stage detector: PointNet++ MSG backbone on the raw
+    points -> point-wise box head (a proposal at every point) -> RoI point
+    pooling and an SA encoder over the pooled points -> cls-score NMS."""
+
+    def final_predictions(self, batch_dict):
+        return self.post_processing(batch_dict)
+
+
 DETECTOR_REGISTRY = {'FromVoxelToPoint': FromVoxelToPoint,
                      'MGAF3DSSD': MGAF3DSSD, 'SECONDNet': SECONDNet,
                      'PointPillar': PointPillar, 'PVRCNN': PVRCNN,
-                     'VoxelRCNN': VoxelRCNN}
+                     'VoxelRCNN': VoxelRCNN, 'PointRCNN': PointRCNN}
 
 
 def compute_training_loss(model, batch_dict):
@@ -302,7 +323,8 @@ def compute_training_loss(model, batch_dict):
     and PV-RCNN the RPN, point-head and RCNN losses summed, for Voxel
     R-CNN the RPN and RCNN losses, for MGAF-3DSSD the CenterAF head's eight
     terms, for SECOND and PointPillar the RPN loss alone (the multihead's
-    own loss with ``AnchorHeadMulti``).
+    own loss with ``AnchorHeadMulti``), for PointRCNN the point box head's
+    and the RCNN losses.
     Returns (loss, terms), every term a 0-d tensor, ``terms['loss']`` the
     total."""
     cfg = model.model_cfg
@@ -310,6 +332,13 @@ def compute_training_loss(model, batch_dict):
         rpn_loss, tb = center_af_head_loss(cfg.DENSE_HEAD, batch_dict['head_ret'])
         tb['loss'] = rpn_loss
         return rpn_loss, tb
+    if isinstance(model, PointRCNN):
+        point_loss, tb = point_head_box_loss(cfg.POINT_HEAD, batch_dict['point_head_ret'])
+        rcnn_loss, tb_r = pointrcnn_head_loss(cfg.ROI_HEAD, batch_dict['roi_head_ret'])
+        tb.update(tb_r)
+        loss = point_loss + rcnn_loss
+        tb['loss'] = loss
+        return loss, tb
     head = model.dense_head
     if isinstance(head, AnchorHeadMulti):
         rpn_loss, tb = anchor_head_multi_loss(cfg.DENSE_HEAD, batch_dict['anchor_head_ret'],

@@ -46,6 +46,18 @@ def proposal_layer(batch_box_preds, batch_cls_preds, nms_cfg):
     return rois, roi_scores, roi_labels, keep_valid
 
 
+def decode_in_roi_frame(coder, reg, rois):
+    """(B, R, code) refinements of RoIs (B, R, 7) -> boxes (B, R, 7 + C):
+    decoded against the RoI moved to the origin, rotated by its heading,
+    shifted to its center."""
+    b, r = rois.shape[:2]
+    local = torch.cat([torch.zeros_like(rois[..., 0:3]), rois[..., 3:]], dim=-1)
+    dec = coder.decode(reg, local)
+    dec = common_utils.rotate_points_along_z(dec.reshape(b * r, 1, -1),
+                                             rois[..., 6].reshape(-1)).reshape(b, r, -1)
+    return torch.cat([dec[..., 0:3] + rois[..., 0:3], dec[..., 3:]], dim=-1)
+
+
 # ------------------------------------------------- proposal target layer
 
 def _max_iou_with_same_class(rois, roi_labels, gt_boxes, gt_labels, gt_valid):
@@ -606,12 +618,4 @@ class IoUGuidedRoIHead(nn.Module):
         cls_preds = cls_preds.reshape(b, r, -1).float()
         iou_preds = iou_preds.reshape(b, r, -1).float()
         box_preds = box_preds.reshape(b, r, self.box_coder.code_size).float()
-        local_rois = torch.cat([torch.zeros_like(rois[..., 0:3]),
-                                rois[..., 3:]], dim=-1)
-        decoded = self.box_coder.decode(box_preds, local_rois)
-        decoded = common_utils.rotate_points_along_z(
-            decoded.reshape(b * r, 1, -1), rois[..., 6].reshape(-1))
-        decoded = decoded.reshape(b, r, -1)
-        decoded = torch.cat([decoded[..., 0:3] + rois[..., 0:3],
-                             decoded[..., 3:]], dim=-1)
-        return cls_preds, decoded, iou_preds
+        return cls_preds, decode_in_roi_frame(self.box_coder, box_preds, rois), iou_preds

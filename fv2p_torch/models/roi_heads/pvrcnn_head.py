@@ -18,8 +18,8 @@ from torch import nn
 from ...utils import box_coder_utils, common_utils
 from ..backbones_3d.pfe.voxel_set_abstraction import add_msg_mlps, msg_pool
 from ..layers import BatchNorm, Dense, Dropout
-from .iouguided_roi_head import (_dense_grid_points, assign_targets, draw_roi_sampling,
-                                 proposal_layer, rcnn_box_loss_terms)
+from .iouguided_roi_head import (_dense_grid_points, assign_targets, decode_in_roi_frame,
+                                 draw_roi_sampling, proposal_layer, rcnn_box_loss_terms)
 
 
 def pvrcnn_head_loss(model_cfg, ret):
@@ -103,15 +103,9 @@ class RoIGridHead(nn.Module):
             ret.update(rcnn_cls=rcnn_cls, rcnn_reg=rcnn_reg, rois_sampled=batch_rois)
             batch_dict['roi_head_ret'] = ret
             return batch_dict
-        code_size = self.box_coder.code_size
-        local_rois = torch.cat([torch.zeros_like(batch_rois[..., 0:3]), batch_rois[..., 3:]],
-                               dim=-1)
-        decoded = self.box_coder.decode(rcnn_reg.reshape(b, r, code_size), local_rois)
-        decoded = common_utils.rotate_points_along_z(
-            decoded.reshape(b * r, 1, -1), batch_rois[..., 6].reshape(-1)).reshape(b, r, -1)
-        decoded = torch.cat([decoded[..., 0:3] + batch_rois[..., 0:3], decoded[..., 3:]], dim=-1)
         batch_dict['batch_cls_preds'] = rcnn_cls.reshape(b, r, -1)
-        batch_dict['batch_box_preds'] = decoded
+        batch_dict['batch_box_preds'] = decode_in_roi_frame(
+            self.box_coder, rcnn_reg.reshape(b, r, self.box_coder.code_size), batch_rois)
         batch_dict['has_class_labels'] = True
         batch_dict['cls_preds_normalized'] = False
         return batch_dict

@@ -7,6 +7,12 @@ place of ragged lists). The recall counter's 3D IoUs come from kernel B1
 (``utils/iou3d.boxes_iou3d``) on the model's device, one call per scan for
 the final boxes and one for the RoIs. Timing: the host clock around each
 forward, ended by the copy of its predictions to the host.
+
+Data parallel (``merge_ranks``): each rank runs its own scans; rank 0
+gathers every rank's det_annos back into dataset order (the loader's
+``rank::world`` split, undone by ``parallel.interleave``), sums the recall
+counters and the rows the device rulebooks dropped, scores and writes
+``result.json``, as JAX merges its processes' results.
 """
 import json
 import time
@@ -14,9 +20,10 @@ import time
 import numpy as np
 import torch
 
+from .. import parallel
 from ..datasets import batch_to_numpy, prefetch
 from ..ops.sparse import host_rulebook
-from ..utils import iou3d
+from ..utils import iou3d, misc
 from ..utils.synthetic import batch_to_torch
 
 PRED_KEYS = ('pred_boxes', 'pred_scores', 'pred_labels', 'pred_valid')
@@ -87,13 +94,17 @@ def pad_batch_to_size(batch_np, batch_size):
 
 
 def eval_one_epoch(cfg, model, loader, test_set, eval_dir, logger, batch_size,
-                   save_to_file=False):
+                   save_to_file=False, merge_ranks=False):
     """Evaluate ``model`` (eval mode, on its device) over ``loader``; writes
     ``result.json`` into ``eval_dir``. Returns (the dict, the det_annos):
     recall at each threshold, the dataset's AP dict, ``sec_per_example``
     (host seconds of the forward per scan, the first batch apart, which pays
     the kernels' first launches), the loader's wait per batch and the
-    forward's median in ms."""
+    forward's median in ms. With ``merge_ranks`` every rank of the process
+    group calls it on its own shard; rank 0 returns the merged result (its
+    own timings) and the merged det_annos, the other ranks ({}, their own
+    det_annos). A batch whose device rulebooks dropped rows raises after
+    the loop, on every rank."""
     pp_cfg = cfg.MODEL.POST_PROCESSING
     thresh_list = list(pp_cfg.get('RECALL_THRESH_LIST', [0.3, 0.5, 0.7]))
     recall_fn = make_recall_fn(tuple(thresh_list))
@@ -111,6 +122,7 @@ def eval_one_epoch(cfg, model, loader, test_set, eval_dir, logger, batch_size,
     recall.update({('recall_roi_%s' % str(t)): 0 for t in thresh_list})
     total_gt = 0
     dropped = None                # device rulebooks: rows dropped per level
+    dropped_batches = []
     forward_s, waits = [], []
     n_first = 0
     for i, (_, (batch_np, n_real, batch), wait) in enumerate(prefetch(loader, convert)):
@@ -125,10 +137,7 @@ def eval_one_epoch(cfg, model, loader, test_set, eval_dir, logger, batch_size,
             batch_drop = pred.pop('rulebook_overflow')
             dropped = batch_drop if dropped is None else dropped + batch_drop
             if batch_drop.any():
-                raise RuntimeError(
-                    'device rulebooks: level capacities dropped %s sparse rows '
-                    '(x_conv2, x_conv3, x_conv4, out) in eval batch %d'
-                    % (batch_drop.tolist(), i))
+                dropped_batches.append(i)
         if i == 0:
             n_first = n_real
 
@@ -148,6 +157,22 @@ def eval_one_epoch(cfg, model, loader, test_set, eval_dir, logger, batch_size,
             logger.info(f'eval batch {i}/{len(loader)}')
 
     n_scans = len(det_annos)
+    if dropped is not None:
+        if merge_ranks:
+            dropped = parallel.sum_over_ranks(torch.from_numpy(dropped)).numpy()
+        if dropped.any():
+            raise RuntimeError(
+                'device rulebooks: level capacities dropped %s sparse rows (x_conv2, '
+                'x_conv3, x_conv4, out) over the eval set (batches %s of rank %d)'
+                % (dropped.tolist(), dropped_batches, parallel.rank()))
+    if merge_ranks:
+        det_annos = parallel.interleave(misc.all_gather(det_annos))
+        merged = misc.reduce_dict({**recall, 'total_gt': total_gt}, average=False)
+        total_gt = int(merged.pop('total_gt'))
+        recall = {k: int(v) for k, v in merged.items()}
+        logger.info(f'merged {len(det_annos)} det_annos of {parallel.world_size()} ranks')
+        if parallel.rank() != 0:
+            return {}, det_annos
     first_batch_sec = forward_s[0] / max(n_first, 1)
     if n_scans > n_first:
         sec_per_example = sum(forward_s[1:]) / (n_scans - n_first)

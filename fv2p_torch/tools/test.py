@@ -9,6 +9,11 @@ Results go to ``output/torch/<group>/<tag>/<extra_tag>/eval/`` (or under
 ``--output_dir``). The model runs on the CUDA card; ``--device cpu`` runs
 the kernels' plain versions on the CPU. Without ``--ckpt`` the model keeps
 seeded random weights.
+
+Data parallel (``--dist`` under torchrun, ``--num_devices N``, or a process
+group that already exists): each rank evaluates the scans ``rank::world``
+in batches of ``--batch_size``; rank 0 gathers the detections back into
+dataset order, sums the recall counters, scores and writes the results.
 """
 import argparse
 import datetime
@@ -18,6 +23,7 @@ from pathlib import Path
 
 import torch
 
+from .. import parallel
 from ..config import REPO_ROOT, EasyDict, cfg_from_list, cfg_from_yaml_file
 from ..datasets import build_dataloader, build_dataset, dataset_meta_from_cfg
 from ..models import build_network
@@ -26,8 +32,6 @@ from ..utils import common_utils
 from ..weights import init_random_
 from .eval_utils import eval_one_epoch
 
-NOT_PORTED = ('--dist and --num_devices (multi-GPU, ROADMAP.md A2) are not '
-              'ported: passing one raises.')
 CKPT_PATTERN = re.compile(r'^checkpoint_epoch_(\d+)\.pth$')
 
 
@@ -49,9 +53,11 @@ def add_common_args(parser):
     parser.add_argument('--set', dest='set_cfgs', default=None, nargs=argparse.REMAINDER,
                         help='KEY VALUE pairs that override the yaml')
     parser.add_argument('--dist', action='store_true', default=False,
-                        help='not ported (ROADMAP.md A2): raises')
+                        help='join the ranks torchrun started (env://): NCCL on '
+                             'the card, gloo on the CPU')
     parser.add_argument('--num_devices', type=int, default=None,
-                        help='not ported (ROADMAP.md A2): raises')
+                        help='start this many ranks, one a card (cuda:0..N-1), '
+                             'or on the CPU with --device cpu')
     parser.add_argument('--rulebooks', choices=['host', 'device'], default='host',
                         help='host: per-sample rulebooks built in the loader '
                              'workers (C++); device: built in the forward from '
@@ -60,9 +66,7 @@ def add_common_args(parser):
 
 
 def load_config(args):
-    """The yaml with --set applied, and the refusals of what is not ported."""
-    if args.dist or args.num_devices is not None:
-        raise NotImplementedError(NOT_PORTED)
+    """The yaml with --set applied."""
     cfg = EasyDict()
     cfg_from_yaml_file(args.cfg_file, cfg)
     cfg.TAG = Path(args.cfg_file).stem
@@ -138,8 +142,7 @@ def get_no_evaluated_ckpt(ckpt_dir, record_file, start_epoch):
 
 
 def parse_config(argv=None):
-    parser = argparse.ArgumentParser(description=__doc__.split('\n\n')[0],
-                                     epilog=NOT_PORTED)
+    parser = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     add_common_args(parser)
     parser.add_argument('--ckpt', type=str, default=None, help='checkpoint to evaluate')
     parser.add_argument('--save_to_file', action='store_true', default=False,
@@ -157,26 +160,53 @@ def parse_config(argv=None):
 
 def main(argv=None):
     """Returns the result dict of the last evaluation (None when --eval_all
-    found no checkpoint)."""
+    found no checkpoint; with --num_devices, rank 0's; on the other ranks
+    of a data-parallel run, {})."""
     args, cfg = parse_config(argv)
+    if args.num_devices is not None and not parallel.is_distributed():
+        eval_dir = output_dir_of(cfg, args) / 'eval'
+        eval_dir.mkdir(parents=True, exist_ok=True)
+        return parallel.launch(main, args.num_devices, (argv,), args.device,
+                               result_path=eval_dir / 'rank0_result.pkl')
+    own_group = args.dist and not parallel.is_distributed()
+    if own_group:
+        parallel.init_process_group(args.device)
+    try:
+        return _evaluate(args, cfg)
+    finally:
+        if own_group:
+            torch.distributed.destroy_process_group()
+
+
+def _evaluate(args, cfg):
+    rank, world = parallel.rank(), parallel.world_size()
     batch_size = args.batch_size or cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU
     output_dir = output_dir_of(cfg, args)
     eval_dir = output_dir / 'eval'
     eval_dir.mkdir(parents=True, exist_ok=True)
     logger = common_utils.create_logger(
-        eval_dir / ('log_eval_%s.txt' % datetime.datetime.now().strftime('%Y%m%d-%H%M%S')))
+        eval_dir / ('log_eval_%s.txt' % datetime.datetime.now().strftime('%Y%m%d-%H%M%S'))
+        if rank == 0 else None, rank=rank)
 
     test_set = make_dataset(cfg, training=False, logger=logger, rulebooks=args.rulebooks)
+    if len(test_set) < world:
+        raise ValueError(f'{len(test_set)} scans cannot be shared by {world} ranks')
     loader = build_dataloader(test_set, batch_size, args.workers, training=False,
-                              pin_memory=args.device == 'cuda')
+                              pin_memory=args.device == 'cuda', rank=rank, world=world)
+    if world > 1:
+        logger.info(f'rank {rank} of {world}: {len(loader.sampler)} of {len(test_set)} scans')
     model = make_model(cfg, args, 'test')
+
+    def evaluate(out_dir):
+        ret, _ = eval_one_epoch(cfg, model, loader, test_set, out_dir, logger, batch_size,
+                                save_to_file=args.save_to_file, merge_ranks=world > 1)
+        return ret
 
     if not args.eval_all:
         if args.ckpt:
             load_model_state(model, args.ckpt)
             logger.info(f'restored {args.ckpt}')
-        ret, _ = eval_one_epoch(cfg, model, loader, test_set, eval_dir, logger,
-                                batch_size, save_to_file=args.save_to_file)
+        ret = evaluate(eval_dir)
         logger.info('****************End evaluation****************')
         return ret
 
@@ -184,7 +214,9 @@ def main(argv=None):
     record_file = eval_dir / ('eval_list_%s.txt' % cfg.DATA_CONFIG.DATA_SPLIT['test'])
     wait_second, total_time, ret = 30, 0, None
     while True:
-        epoch_id, cur_ckpt = get_no_evaluated_ckpt(ckpt_dir, record_file, args.start_epoch)
+        # rank 0 picks the checkpoint, so that every rank takes the same one
+        epoch_id, _ = get_no_evaluated_ckpt(ckpt_dir, record_file, args.start_epoch)
+        epoch_id = parallel.broadcast_int(epoch_id)
         if epoch_id == -1:
             total_time += wait_second
             if total_time > args.max_waiting_mins * 60:
@@ -195,13 +227,13 @@ def main(argv=None):
             time.sleep(wait_second)
             continue
         total_time = 0
-        load_model_state(model, cur_ckpt)
+        load_model_state(model, ckpt_dir / f'checkpoint_epoch_{epoch_id}.pth')
         cur_eval_dir = eval_dir / ('epoch_%d' % epoch_id)
         cur_eval_dir.mkdir(parents=True, exist_ok=True)
-        ret, _ = eval_one_epoch(cfg, model, loader, test_set, cur_eval_dir, logger,
-                                batch_size, save_to_file=args.save_to_file)
-        with open(record_file, 'a') as f:
-            print('%d' % epoch_id, file=f)
+        ret = evaluate(cur_eval_dir)
+        if rank == 0:
+            with open(record_file, 'a') as f:
+                print('%d' % epoch_id, file=f)
         logger.info('Epoch %d has been evaluated' % epoch_id)
     logger.info('****************End evaluation****************')
     return ret

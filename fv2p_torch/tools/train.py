@@ -5,6 +5,16 @@ checkpoint every ``--ckpt_save_interval`` epochs with rotation to
 ``--eval_after_train``.
 
     python -m fv2p_torch.tools.train --cfg_file tools/cfgs/kitti_models/FV2P/fv2p.yaml
+    torchrun --nproc_per_node N -m fv2p_torch.tools.train --dist --cfg_file ...
+    python -m fv2p_torch.tools.train --num_devices N --cfg_file ...
+
+Data parallel (``--dist`` under torchrun, or ``--num_devices N``, which
+starts the N ranks itself; a run inside a process group that already
+exists joins it): ``--batch_size`` (default the yaml's BATCH_SIZE_PER_GPU)
+is the global batch, split over the ranks as JAX splits it over its mesh,
+so an epoch has as many steps at any rank count (``parallel``). Rank 0
+alone writes the log file, ``metrics.jsonl`` and the checkpoints and runs
+``--eval_after_train``; every rank resumes from the same checkpoint.
 
 Checkpoints are ``torch.save`` files ``<output_dir>/ckpt/checkpoint_epoch_<n>.pth``
 holding the model's ``state_dict``, the optimizer's state (the one-cycle
@@ -22,6 +32,7 @@ import time
 import numpy as np
 import torch
 
+from .. import parallel
 from ..config import log_config_to_file
 from ..datasets import build_dataloader, prefetch
 from ..models.backbones_3d.spconv_backbone import LEVELS
@@ -39,9 +50,8 @@ LOG_INTERVAL = 50                 # steps between loss lines and overflow checks
 def parse_config(argv=None):
     parser = argparse.ArgumentParser(
         description=__doc__.split('\n\n')[0],
-        epilog=test_runner.NOT_PORTED + ' --max_rss_gb (a workaround for a '
-        'remote-TPU client) has no counterpart; --profile_steps (a '
-        'torch.profiler trace) is not ported yet.')
+        epilog='--max_rss_gb (a workaround for a remote-TPU client) has no '
+        'counterpart; --profile_steps (a torch.profiler trace) is not ported yet.')
     test_runner.add_common_args(parser)
     parser.add_argument('--epochs', type=int, default=None)
     parser.add_argument('--max_ckpt_save_num', type=int, default=30)
@@ -58,15 +68,16 @@ def parse_config(argv=None):
 
 def check_device_overflow(trainer, epoch, it):
     """Raise if the device rulebooks have dropped sparse rows at a level's
-    capacity in any step so far (``TrainStep.dropped_rows``, one read from
-    the device), naming each level and the yaml key to raise, as the host
-    builder raises at its first overflow. The train loop calls it every
-    LOG_INTERVAL steps and before each checkpoint, so a run raises within
-    LOG_INTERVAL steps of the first step that drops a row and writes no
-    checkpoint after it."""
+    capacity in any step so far (``TrainStep.dropped_rows`` summed over the
+    ranks, one read from the device), naming each level and the yaml key to
+    raise, as the host builder raises at its first overflow. Every rank
+    raises together, none is left waiting in a collective. The train loop
+    calls it every LOG_INTERVAL steps and before each checkpoint, so a run
+    raises within LOG_INTERVAL steps of the first step that drops a row and
+    writes no checkpoint after it."""
     if trainer.dropped_rows is None:
         return
-    dropped = trainer.dropped_rows.tolist()
+    dropped = parallel.sum_over_ranks(trainer.dropped_rows).tolist()
     if any(dropped):
         over = {lvl: int(n) for lvl, n in zip(LEVELS[1:], dropped) if n}
         keys = ', '.join(f'MODEL.BACKBONE_3D.LEVEL_CAPACITIES.{lvl}' for lvl in over)
@@ -79,7 +90,7 @@ def save_checkpoint(trainer, epoch, ckpt_dir):
     """checkpoint_epoch_<epoch>.pth, written to a temporary name first."""
     path = ckpt_dir / f'checkpoint_epoch_{epoch}.pth'
     tmp = ckpt_dir / f'{path.name}.{os.getpid()}.tmp'
-    torch.save({'epoch': epoch, 'model_state': trainer.model.state_dict(),
+    torch.save({'epoch': epoch, 'model_state': trainer.module.state_dict(),
                 'optimizer_state': trainer.optimizer.state_dict()}, tmp)
     os.replace(tmp, path)
     return path
@@ -87,7 +98,7 @@ def save_checkpoint(trainer, epoch, ckpt_dir):
 
 def load_checkpoint(trainer, path):
     """Restore the model and the optimizer in place; returns the epoch."""
-    ckpt = test_runner.load_model_state(trainer.model, path)
+    ckpt = test_runner.load_model_state(trainer.module, path)
     trainer.optimizer.load_state_dict(ckpt['optimizer_state'])
     return int(ckpt['epoch'])
 
@@ -99,13 +110,37 @@ def rotate_checkpoints(ckpt_dir, keep):
         path.unlink()
 
 
+def _rank_main(argv):
+    """One rank of a ``--num_devices`` run: the record without the trainer."""
+    return {k: v for k, v in main(argv).items() if k != 'trainer'}
+
+
 def main(argv=None, on_resume=None):
     """Train. ``on_resume(trainer, path)``, if given, is called right after
     an auto-resume has restored ``path``. Returns a record: the trainer, the
-    checkpoint it resumed from, every step's loss terms (host floats), the
-    host seconds between step ends (the loader's waits included) and the
-    loader's wait per step, and the eval results of --eval_after_train."""
+    checkpoint it resumed from, every step's loss terms (host floats; over
+    the ranks, their mean), the host seconds between step ends (the
+    loader's waits included) and the loader's wait per step, and the eval
+    results of --eval_after_train. With --num_devices, rank 0's record
+    without the trainer."""
     args, cfg = parse_config(argv)
+    if args.num_devices is not None and not parallel.is_distributed():
+        out_dir = test_runner.output_dir_of(cfg, args)
+        out_dir.mkdir(parents=True, exist_ok=True)
+        return parallel.launch(_rank_main, args.num_devices, (argv,), args.device,
+                               result_path=out_dir / 'rank0_record.pkl')
+    own_group = args.dist and not parallel.is_distributed()
+    if own_group:
+        parallel.init_process_group(args.device)
+    try:
+        return _train(args, cfg, on_resume)
+    finally:
+        if own_group:
+            torch.distributed.destroy_process_group()
+
+
+def _train(args, cfg, on_resume):
+    rank, world = parallel.rank(), parallel.world_size()
     if args.fix_random_seed:
         common_utils.set_random_seed(FIXED_SEED)
     batch_size = args.batch_size or cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU
@@ -113,9 +148,11 @@ def main(argv=None, on_resume=None):
 
     output_dir = test_runner.output_dir_of(cfg, args)
     ckpt_dir = output_dir / 'ckpt'
-    ckpt_dir.mkdir(parents=True, exist_ok=True)
+    if rank == 0:
+        ckpt_dir.mkdir(parents=True, exist_ok=True)
     logger = common_utils.create_logger(
-        output_dir / ('log_train_%s.txt' % datetime.datetime.now().strftime('%Y%m%d-%H%M%S')))
+        output_dir / ('log_train_%s.txt' % datetime.datetime.now().strftime('%Y%m%d-%H%M%S'))
+        if rank == 0 else None, rank=rank)
     logger.info('**********************Start logging**********************')
     log_config_to_file(cfg, logger=logger)
 
@@ -123,10 +160,10 @@ def main(argv=None, on_resume=None):
         cfg, training=True, logger=logger, rulebooks=args.rulebooks,
         rng=np.random.RandomState(FIXED_SEED) if args.fix_random_seed else None)
     loader = build_dataloader(train_set, batch_size, args.workers, training=True,
-                              pin_memory=args.device == 'cuda')
+                              pin_memory=args.device == 'cuda', rank=rank, world=world)
     steps_per_epoch = len(loader)
     model = test_runner.make_model(cfg, args, 'train')
-    trainer = TrainStep(model, cfg.OPTIMIZATION, steps_per_epoch * epochs)
+    trainer = TrainStep(parallel.wrap_model(model), cfg.OPTIMIZATION, steps_per_epoch * epochs)
     device = trainer.device
     logger.info('model: %d parameters' % sum(p.numel() for p in model.parameters()))
 
@@ -141,10 +178,11 @@ def main(argv=None, on_resume=None):
             on_resume(trainer, resumed_from)
 
     logger.info(f'start training: epochs {start_epoch}..{epochs} x {steps_per_epoch} '
-                f'steps, batch {batch_size}, on {device}')
+                f'steps, global batch {batch_size} over {world} rank(s), on {device}')
     record = {'trainer': trainer, 'resumed_from': resumed_from, 'start_epoch': start_epoch,
               'steps': [], 'step_s': [], 'loader_wait_s': [], 'checkpoints': []}
-    with open(output_dir / 'metrics.jsonl', 'a') as metrics_file:
+    metrics_file = open(output_dir / 'metrics.jsonl', 'a') if rank == 0 else None
+    try:
         for epoch in range(start_epoch, epochs):
             terms = []
             t_prev = time.perf_counter()
@@ -165,13 +203,15 @@ def main(argv=None, on_resume=None):
                 line = dict(zip(names, (float(x) for x in row)),
                             epoch=epoch, it=epoch * steps_per_epoch + i + 1)
                 record['steps'].append(line)
-                metrics_file.write(json.dumps(line) + '\n')
+                if metrics_file is not None:
+                    metrics_file.write(json.dumps(line) + '\n')
                 if line['it'] % LOG_INTERVAL == 0:
                     logger.info('epoch %d it %d loss %.4f grad_norm %.2f'
                                 % (epoch, line['it'], line['loss'], line['grad_norm']))
-            metrics_file.flush()
+            if metrics_file is not None:
+                metrics_file.flush()
             logger.info('epoch %d: mean loss %.4f' % (epoch + 1, table[:, names.index('loss')].mean()))
-            if (epoch + 1) % args.ckpt_save_interval == 0 or epoch + 1 == epochs:
+            if rank == 0 and ((epoch + 1) % args.ckpt_save_interval == 0 or epoch + 1 == epochs):
                 record['checkpoints'].append(save_checkpoint(trainer, epoch + 1, ckpt_dir))
                 rotate_checkpoints(ckpt_dir, args.max_ckpt_save_num)
                 logger.info(f'saved checkpoint epoch {epoch + 1}')
@@ -179,16 +219,20 @@ def main(argv=None, on_resume=None):
             if of['samples_over']:
                 logger.warning('rulebook capacity overflow: %s' % of)
             host_rulebook.reset_overflow_stats()
+    finally:
+        if metrics_file is not None:
+            metrics_file.close()
     logger.info('**********************End training**********************')
 
-    if args.eval_after_train:
+    if args.eval_after_train and rank == 0:
         record['eval'] = evaluate_checkpoints(cfg, args, output_dir, batch_size, logger)
     return record
 
 
 def evaluate_checkpoints(cfg, args, output_dir, batch_size, logger):
-    """eval_one_epoch of the newest --num_epochs_to_eval checkpoints;
-    returns {epoch: result dict}."""
+    """eval_one_epoch of the newest --num_epochs_to_eval checkpoints, the
+    whole val set in this process (rank 0 of a data-parallel run, alone, as
+    JAX evaluates on process 0); returns {epoch: result dict}."""
     eval_dir = output_dir / 'eval' / 'eval_with_train'
     test_set = test_runner.make_dataset(cfg, training=False, logger=logger,
                                         rulebooks=args.rulebooks)

@@ -6,9 +6,20 @@ statistics update in the forward, as flax's mutable ``batch_stats`` do.
 The random draws of a step come from two generators seeded by the step
 number, as JAX folds ``PRNGKey(13)`` with the step: one for the RoI
 sampling, one for the dropout masks. The port's generators do not give
-JAX's bits; a test that needs JAX's draws feeds them in."""
+JAX's bits; a test that needs JAX's draws feeds them in.
+
+Data parallel (``make_train_step(model, axis_name)`` over a mesh): the model
+is given wrapped by ``parallel.wrap_model``. Each rank's forward normalises
+by its own samples' batch statistics, DDP averages the gradients in the
+backward pass, the clip and the optimizer step read the averaged gradients
+(``grad_norm`` is their norm), the loss terms ``step`` returns are the
+ranks' mean and the running statistics are averaged after the update, as
+JAX ``pmean``s gradients, loss terms and statistics. The generators stay
+seeded by the step alone, the same on every rank, as JAX's key is the same
+on every device. Without a process group all of that is the identity."""
 import torch
 
+from .. import parallel
 from ..models.detectors.detector3d_template import compute_training_loss
 from .optimization import build_optimizer
 
@@ -38,8 +49,9 @@ class TrainStep:
 
     def __init__(self, model, optim_cfg, total_steps):
         self.model = model.train()
-        self.optimizer = build_optimizer(model.parameters(), optim_cfg, total_steps)
-        self.device = next(model.parameters()).device
+        self.module = parallel.unwrap(model)
+        self.optimizer = build_optimizer(self.module.parameters(), optim_cfg, total_steps)
+        self.device = next(self.module.parameters()).device
         self.dropped_rows = None
 
     @property
@@ -50,7 +62,7 @@ class TrainStep:
         bd = dict(batch_dict)
         bd['generators'] = step_generators(self.step_count, self.device)
         out = self.model(bd)
-        loss, terms = compute_training_loss(self.model, out)
+        loss, terms = compute_training_loss(self.module, out)
         return loss, terms, out
 
     def backward(self, loss):
@@ -60,13 +72,14 @@ class TrainStep:
     def update(self):
         grad_norm = self.optimizer.clip_grads()
         self.optimizer.step()
+        parallel.average_running_stats(self.module)
         return grad_norm
 
     def step(self, batch_dict):
         loss, terms, out = self.forward_loss(batch_dict)
         self.backward(loss)
         grad_norm = self.update()
-        metrics = {k: v.detach() for k, v in terms.items()}
+        metrics = parallel.mean_over_ranks({k: v.detach() for k, v in terms.items()})
         metrics['grad_norm'] = grad_norm
         if 'rulebook_overflow' in out:
             dropped = out['rulebook_overflow']

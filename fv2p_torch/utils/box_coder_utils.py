@@ -1,6 +1,8 @@
 """Box coders (reference ``pcdet/utils/box_coder_utils.py``)."""
 import torch
 
+from . import common_utils
+
 
 class ResidualCoder:
     """SECOND-style residual coder: (xt, yt) normalized by the anchor BEV
@@ -60,3 +62,62 @@ class ResidualCoder:
         cgs = [box_encodings[..., i + s] + anchors[..., i]
                for i in range(7, anchors.shape[-1])]
         return torch.stack([xg, yg, zg, dxg, dyg, dzg, rg, *cgs], dim=-1)
+
+
+class PointResidualCoder:
+    """Point-based 8-dim coder (PointRCNN's point head): the offset of the
+    box center from the point, normalised by the BEV diagonal and height of
+    the class's mean size, log-dims against that size, and the heading as
+    (cos, sin). Without ``use_mean_size`` the offsets are raw and the dims
+    plain logs. Box columns past the 7th are copied through."""
+
+    def __init__(self, code_size=8, use_mean_size=True, **kwargs):
+        self.code_size = code_size
+        self.use_mean_size = use_mean_size
+        if self.use_mean_size:
+            self.mean_size = [[float(v) for v in row] for row in kwargs['mean_size']]
+            if min(min(row) for row in self.mean_size) <= 0:
+                raise ValueError(f'mean_size must be positive: {self.mean_size}')
+
+    def _sizes(self, classes, ref):
+        """(..., 3) mean size of each class in [1, C] (clamped into range)."""
+        ms = common_utils.device_constant(self.mean_size, ref.dtype, ref.device)
+        return ms[(classes.long() - 1).clamp(0, ms.shape[0] - 1)]
+
+    def encode(self, gt_boxes, points, gt_classes=None):
+        """gt_boxes (N, 7 + C), points (N, 3), gt_classes (N,) in [1, C] ->
+        (N, 8 + C); extents clamped to 1e-5 first."""
+        gt_boxes = torch.cat([gt_boxes[:, :3], gt_boxes[:, 3:6].clamp(min=1e-5),
+                              gt_boxes[:, 6:]], dim=-1)
+        xg, yg, zg, dxg, dyg, dzg, rg = [gt_boxes[:, i] for i in range(7)]
+        xa, ya, za = points[:, 0], points[:, 1], points[:, 2]
+        if self.use_mean_size:
+            sizes = self._sizes(gt_classes, gt_boxes)
+            dxa, dya, dza = sizes[:, 0], sizes[:, 1], sizes[:, 2]
+            diagonal = torch.sqrt(dxa ** 2 + dya ** 2)
+            xt, yt, zt = (xg - xa) / diagonal, (yg - ya) / diagonal, (zg - za) / dza
+            dxt, dyt, dzt = torch.log(dxg / dxa), torch.log(dyg / dya), torch.log(dzg / dza)
+        else:
+            xt, yt, zt = xg - xa, yg - ya, zg - za
+            dxt, dyt, dzt = torch.log(dxg), torch.log(dyg), torch.log(dzg)
+        extra = [gt_boxes[:, i] for i in range(7, gt_boxes.shape[-1])]
+        return torch.stack([xt, yt, zt, dxt, dyt, dzt, torch.cos(rg), torch.sin(rg),
+                            *extra], dim=-1)
+
+    def decode(self, box_encodings, points, pred_classes=None):
+        """box_encodings (..., 8 + C), points (..., 3), pred_classes (...)
+        in [1, C] -> (..., 7 + C)."""
+        xt, yt, zt, dxt, dyt, dzt, cost, sint = [box_encodings[..., i] for i in range(8)]
+        xa, ya, za = points[..., 0], points[..., 1], points[..., 2]
+        if self.use_mean_size:
+            sizes = self._sizes(pred_classes, box_encodings)
+            dxa, dya, dza = sizes[..., 0], sizes[..., 1], sizes[..., 2]
+            diagonal = torch.sqrt(dxa ** 2 + dya ** 2)
+            xg, yg, zg = xt * diagonal + xa, yt * diagonal + ya, zt * dza + za
+            dxg, dyg, dzg = torch.exp(dxt) * dxa, torch.exp(dyt) * dya, torch.exp(dzt) * dza
+        else:
+            xg, yg, zg = xt + xa, yt + ya, zt + za
+            dxg, dyg, dzg = torch.exp(dxt), torch.exp(dyt), torch.exp(dzt)
+        rg = torch.atan2(sint, cost)
+        extra = [box_encodings[..., i] for i in range(8, box_encodings.shape[-1])]
+        return torch.stack([xg, yg, zg, dxg, dyg, dzg, rg, *extra], dim=-1)

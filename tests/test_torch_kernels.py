@@ -333,7 +333,7 @@ def test_b2_fps_corner_cases_match_pallas(case):
 
 def _builds(model_cfg):
     """Whether the port builds this MODEL config: its detector and every
-    slot it names are ported (the 7 PointRCNN and PartA2 yamls are not)."""
+    slot it names are ported (the 4 PartA2 yamls are not)."""
     from fv2p_torch.models.detectors.detector3d_template import (
         _PORTED, _SLOT_KEYS, DETECTOR_REGISTRY)
     return model_cfg.NAME in DETECTOR_REGISTRY and all(

@@ -86,7 +86,7 @@ def test_build_network_without_device_needs_cuda(monkeypatch):
 
 def test_unported_detector_raises():
     meta = dataset_meta_from_cfg(TINY_DATA_CFG, 'train')
-    cfg = EasyDict(dict(TINY_FV2P_CFG, NAME='PointRCNN'))
+    cfg = EasyDict(dict(TINY_FV2P_CFG, NAME='PartA2Net'))
     with pytest.raises(NotImplementedError, match='ROADMAP'):
         torch_models.build_network(cfg, 1, ['Car'], meta, device='cpu')
 

@@ -253,10 +253,17 @@ def test_train_checkpoint_rotation_and_resume(train_cfg_file, tmp_path):
 
 
 @pytest.mark.parametrize('flag', [['--dist'], ['--num_devices', '2']])
-def test_runners_refuse_what_is_not_ported(train_cfg_file, tmp_path, flag):
+def test_runners_refuse_what_is_not_ported(train_cfg_file, tmp_path, flag, monkeypatch):
+    """The data-parallel flags are ported (``tests/test_torch_ddp.py``); a
+    launch the machine cannot honour raises, never falls back to one
+    process: --dist without torchrun's environment, --num_devices on more
+    cards than the machine has."""
+    for key in ('RANK', 'WORLD_SIZE', 'MASTER_ADDR', 'MASTER_PORT'):
+        monkeypatch.delenv(key, raising=False)
+    monkeypatch.setattr(torch.cuda, 'device_count', lambda: 0)
     for runner in (train, test_runner):
-        with pytest.raises(NotImplementedError, match='ROADMAP'):
-            runner.main(['--cfg_file', str(train_cfg_file), '--device', 'cpu',
+        with pytest.raises(RuntimeError, match='torchrun|CUDA card'):
+            runner.main(['--cfg_file', str(train_cfg_file), '--device', 'cuda',
                          '--output_dir', str(tmp_path), *flag])
 
 
