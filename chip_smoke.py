@@ -252,7 +252,7 @@ B2's corner cases (8.) include 180000-point scans: a mask that is no
 prefix, a row without a valid point, fewer valid points than picks, and
 the kernel's limit of 180224.
 
-Then PointRCNN on data/kitti, and data parallelism, after the Waymo phases:
+Then PointRCNN on data/kitti after the Waymo phases:
 
   * kitti_pointrcnn: kitti_models/pointrcnn.yaml at full width on the first
     4 val scans through KittiDataset (16384 sampled points a scan), seeded
@@ -273,14 +273,44 @@ Then PointRCNN on data/kitti, and data parallelism, after the Waymo phases:
     site (the head's B2 on 512 rows; `kitti_pointrcnn_train_*` keys), one
     step of pointrcnn_iou_car.yaml, and fv2p_torch.tools.test over the 24
     val scans (`kitti_pointrcnn_test_*` keys), AP finite.
+
+Then the PartA2 family, and last data parallelism (ddp):
+
+  * kitti_parta2: kitti_models/PartA2.yaml at full width on the first 4
+    val scans of data/kitti (the 40000-voxel test cap, host tables), bf16,
+    BatchNorm calibrated. Counted: B1 alone, at least twice a scan (the
+    proposal NMS, 1024 -> 100 at 0.7, and the final NMS); every call held
+    to the plain version and timed (`kitti_parta2_*` keys), NMS keeps
+    identical, the f32 forward through the kernel against the plain
+    version; the forward's median, per module, the RoI head by part
+    (proposals, RoI-aware pooling, the dense conv stack, the FCs), peak
+    memory, RoI-aware pooling alone beside its byte bound, host waits.
+  * kitti_parta2_train: PartA2.yaml (Car and Pedestrian with their
+    anchors; fv2p.yaml's train level capacities: the yaml sets none) on 4
+    train samples with gt sampling, jittered gt boxes among the anchor
+    head's proposals: an f32 step through the kernel and the plain version
+    (proposal keeps and sampled RoIs identical, loss terms and gradients
+    as FV2P's), 2 + 5 bf16 steps (foreground RoIs, the RCNN regression
+    above 0 every step), the step per module, one more step's calls held to
+    the plain version (`kitti_parta2_train_*` keys); one step each of
+    PartA2_car.yaml and PartA2_free.yaml; fv2p_torch.tools.test over the
+    24 val scans (`kitti_parta2_test_*` keys); the train runner on 4 train
+    scans of PartA2_car.yaml with OPTIMIZER sgd and --profile_steps 2,3
+    (the trace must hold CUDA kernel events) and with adam.
+  * waymo_parta2: waymo_models/PartA2.yaml at full width on the 2 val
+    frames of data/waymo (90000-voxel cap, waymo_fv2p_e30.yaml's level
+    capacities), the same counts and comparisons as kitti_parta2, then one
+    train step on 2 train samples (Vehicle and Pedestrian: the fixture has
+    no Cyclist in its gt database).
   * ddp: (a) torchrun --nproc_per_node 1 -m fv2p_torch.tools.train --dist
-    (NCCL) against the same run without --dist, loss terms by step; DDP's
-    cost a step at one rank. (b) two gloo ranks on the card, one f32 FV2P
-    train step at global batch 4 against this process computing the two
-    halves in turn and averaging them: gradients, updated parameters and
-    averaged running statistics. (c) the test runner in two gloo ranks
-    against one rank: merged detections in dataset order, recall and AP.
-    The card is one, so NCCL at more than one rank is not checked.
+    (NCCL) against the same run without --dist, both under deterministic
+    algorithms, loss terms by step; DDP's cost a step at one rank. (b) two
+    gloo ranks on the card, one f32 FV2P train step at global batch 4
+    against this process computing the two halves in turn and averaging
+    them: gradients, updated parameters and averaged running statistics.
+    (c) the test runner in two gloo ranks against one rank: merged
+    detections in dataset order, recall and AP. The card is one, so NCCL
+    at more than one rank is not checked.
 
 Depths, cut so that the Waymo phases fit: forwards are timed as the median
 of 10 (FORWARD_REPS; 20 before), train steps as 2 + 5 (TRAIN_TIMED; 2 + 10
@@ -291,8 +321,8 @@ load in the main process (SHORT_RUN_WORKERS). No path, comparison or count
 of launches was dropped. The whole script took 565 s on an H100 (819 s with
 the Waymo phases before those cuts), and 783 s with the PointRCNN and ddp
 phases (~160 s of it) on a slower host, against a time limit of 1200 s; the
-seconds of each phase are printed at the end (`phase_s` in
-chip_smoke.json).
+PartA2 phases add ~70 s. The seconds of each phase are printed at the end
+(`phase_s` in chip_smoke.json).
 
 Exits non-zero on any failure, and without a CUDA card. The second-to-last
 lines are a JSON ``kernels`` object (FV2P's path) and the nvidia-smi name and
@@ -301,6 +331,8 @@ record, MGAF's numbers included, goes to chiprun_out/chip_smoke.json.
 """
 import contextlib
 import json
+import os
+import re
 import subprocess
 import sys
 import time
@@ -961,6 +993,20 @@ def load_cfg(path):
     return cfg
 
 
+def plain_dict(d):
+    """An EasyDict tree as plain dicts and lists (for yaml.safe_dump)."""
+    if isinstance(d, dict):
+        return {k: plain_dict(v) for k, v in d.items()}
+    return [plain_dict(x) for x in d] if isinstance(d, (list, tuple)) else d
+
+
+def kitti_train_caps():
+    """fv2p.yaml's level capacities, for the yamls of the same trunk that set
+    none (SECOND, PV-RCNN, PartA2) when they train on data/kitti: their
+    derived ones drop rows under gt sampling (`kitti_second`)."""
+    return plain_dict(load_cfg(CFG).MODEL.BACKBONE_3D.LEVEL_CAPACITIES)
+
+
 def build_inputs():
     from fv2p_torch.datasets import dataset_meta_from_cfg
     from fv2p_torch.utils.synthetic import synthetic_batch_np
@@ -1034,6 +1080,24 @@ def full_f32():
     finally:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved[:2]
         torch.set_float32_matmul_precision(saved[2])
+
+
+@contextlib.contextmanager
+def deterministic():
+    """PyTorch's deterministic algorithms (warning where an operation has
+    none) and cuDNN's deterministic convolutions, the defaults restored
+    after: float atomics (index_add, cuDNN's weight gradients) then add in a
+    fixed order, so two runs of one step agree to the bit."""
+    saved = (torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled(),
+             torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(saved[0], warn_only=saved[1])
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved[2:]
 
 
 def timed_forwards(model, batch, n):
@@ -1508,9 +1572,12 @@ def train_f32_compare(kernels, cfg, meta, batch, label='train'):
 
 
 def zero_by_construction(name):
-    """The conv biases of the sparse residual blocks: a train-mode
-    BatchNorm follows each, so their true gradient is 0."""
-    return name.startswith('backbone_3d.res') and '.conv' in name and name.endswith('.bias')
+    """The conv biases of the sparse residual blocks (FV2P's trunk, UNetV2's
+    decoder): a train-mode BatchNorm follows each, so their true gradient
+    is 0."""
+    block = name.startswith('backbone_3d.res') or (
+        name.startswith('backbone_3d.up') and '_t.' in name)
+    return block and '.conv' in name and name.endswith('.bias')
 
 
 def train_kernel_rows(train_calls, launches, rows, prefix='train', library=library_three_nn):
@@ -2616,12 +2683,8 @@ def kitti_second_phase(kernels, rows):
     shutil.rmtree(out, ignore_errors=True)
     out.mkdir(parents=True)
     full = load_cfg(SECOND_CFG)
-
-    def plain(d):
-        return {k: plain(v) for k, v in d.items()} if isinstance(d, dict) else (
-            [plain(x) for x in d] if isinstance(d, (list, tuple)) else d)
-    cfg_d = {'CLASS_NAMES': ['Car', 'Pedestrian'], 'DATA_CONFIG': plain(full.DATA_CONFIG),
-             'MODEL': plain(full.MODEL), 'OPTIMIZATION': plain(full.OPTIMIZATION)}
+    cfg_d = {'CLASS_NAMES': ['Car', 'Pedestrian'], 'DATA_CONFIG': plain_dict(full.DATA_CONFIG),
+             'MODEL': plain_dict(full.MODEL), 'OPTIMIZATION': plain_dict(full.OPTIMIZATION)}
     cfg_d['DATA_CONFIG']['DATA_PATH'] = str(KITTI)
     cfg_d['MODEL']['DENSE_HEAD']['ANCHOR_GENERATOR_CONFIG'] = \
         cfg_d['MODEL']['DENSE_HEAD']['ANCHOR_GENERATOR_CONFIG'][:2]
@@ -2629,8 +2692,7 @@ def kitti_second_phase(kernels, rows):
     # ones drop rows (1762 in one epoch on the card: JAX drops them without
     # a word, ROADMAP.md C5; the port raises): fv2p.yaml's train caps, set
     # for the same trunk topology on the same scans
-    cfg_d['MODEL']['BACKBONE_3D']['LEVEL_CAPACITIES'] = plain(
-        load_cfg(CFG).MODEL.BACKBONE_3D.LEVEL_CAPACITIES)
+    cfg_d['MODEL']['BACKBONE_3D']['LEVEL_CAPACITIES'] = kitti_train_caps()
     cfg_file = out / 'second_car_pedestrian.yaml'
     cfg_file.write_text(yaml.safe_dump(cfg_d))
     common = ['--cfg_file', str(cfg_file), '--workers', str(SHORT_RUN_WORKERS),
@@ -3215,8 +3277,7 @@ def kitti_pv_rcnn_phase(kernels, rows):
     cfg_d['DATA_CONFIG']['_BASE_CONFIG_'] = str(
         REPO / 'tools' / cfg_d['DATA_CONFIG']['_BASE_CONFIG_'])
     cfg_d['DATA_CONFIG']['DATA_PATH'] = str(KITTI)
-    cfg_d['MODEL']['BACKBONE_3D']['LEVEL_CAPACITIES'] = yaml.safe_load(
-        CFG.read_text())['MODEL']['BACKBONE_3D']['LEVEL_CAPACITIES']
+    cfg_d['MODEL']['BACKBONE_3D']['LEVEL_CAPACITIES'] = kitti_train_caps()
     cfg_d['OPTIMIZATION']['LR'] = KITTI_TRAIN_LR
     cfg_file = out / 'pv_rcnn_car_fixture.yaml'
     cfg_file.write_text(yaml.safe_dump(cfg_d))
@@ -3297,7 +3358,7 @@ def waymo_batch(cfg, training, seed=SEED):
     levels' largest row counts)."""
     import copy
     from fv2p_torch.datasets import build_dataset
-    from fv2p_torch.models.backbones_3d.spconv_backbone import reads_host_tables
+    from fv2p_torch.models.backbones_3d import reads_host_tables
     from fv2p_torch.ops.sparse import host_rulebook
     from fv2p_torch.utils.synthetic import batch_to_torch
     dc = copy.deepcopy(cfg.DATA_CONFIG)
@@ -3790,14 +3851,499 @@ def kitti_pointrcnn_train_phase(kernels, rows):
     return rec
 
 
+# ------------------------------------------------------------- PartA2
+
+PARTA2_CFG = REPO / 'tools' / 'cfgs' / 'kitti_models' / 'PartA2.yaml'
+PARTA2_CAR_CFG = REPO / 'tools' / 'cfgs' / 'kitti_models' / 'PartA2_car.yaml'
+PARTA2_FREE_CFG = REPO / 'tools' / 'cfgs' / 'kitti_models' / 'PartA2_free.yaml'
+WAYMO_PARTA2_CFG = WAYMO_CFGS / 'PartA2.yaml'
+# the PartA2 family launches B1 alone: proposal NMS, the RoI sampling's 3D
+# IoU, the final NMS, the recall counter and the evaluator
+PARTA2_LAUNCHED = ('rotated_iou',)
+# kitti_parta2_train's runner runs: the train split's first scans, at batch
+# 1 for the profiled run (steps 2 and 3 of 4) and one step of 4 for the other
+PARTA2_RUNNER_SCANS = 4
+
+
+# the classes of data/waymo's objects (its gt database has no Cyclist, and the
+# gt sampler, as JAX's, fails on a class of no entries)
+WAYMO_FIXTURE_CLASSES = ['Vehicle', 'Pedestrian']
+
+
+def fixture_model_cfg(model_cfg, class_names, caps=None):
+    """A PartA2 yaml's MODEL for a fixture (in place): the anchor generator's
+    entries of `class_names` alone, and `caps` as its LEVEL_CAPACITIES."""
+    head = model_cfg.get('DENSE_HEAD')
+    if head is not None:
+        head['ANCHOR_GENERATOR_CONFIG'] = [a for a in head['ANCHOR_GENERATOR_CONFIG']
+                                           if a['class_name'] in class_names]
+    if caps is not None:
+        model_cfg['BACKBONE_3D']['LEVEL_CAPACITIES'] = caps
+    return model_cfg
+
+
+def fixture_classes(cfg, training):
+    """`cfg` (a config, or a yaml's dict) cut to its classes among
+    FIXTURE_CLASSES, with `kitti_train_caps` in training
+    (`fixture_model_cfg`)."""
+    cfg['CLASS_NAMES'] = [c for c in cfg['CLASS_NAMES'] if c in FIXTURE_CLASSES]
+    fixture_model_cfg(cfg['MODEL'], cfg['CLASS_NAMES'],
+                      kitti_train_caps() if training else None)
+    return cfg
+
+
+def fixture_cfg_file(path, out, n_train=None):
+    """The yaml at `path` for the runners on data/kitti (`fixture_classes`,
+    fv2p.yaml's level capacities) written into `out`; with `n_train` the
+    train split cut to its first n_train scans."""
+    import pickle
+    import yaml
+    cfg_d = fixture_classes(yaml.safe_load(path.read_text()), training=True)
+    cfg_d['DATA_CONFIG']['_BASE_CONFIG_'] = str(
+        REPO / 'tools' / cfg_d['DATA_CONFIG']['_BASE_CONFIG_'])
+    cfg_d['DATA_CONFIG']['DATA_PATH'] = str(KITTI)
+    if n_train is not None:
+        with open(KITTI / 'kitti_infos_train.pkl', 'rb') as f:
+            infos = pickle.load(f)[:n_train]
+        info = out / f'kitti_infos_train_first{n_train}.pkl'
+        info.write_bytes(pickle.dumps(infos))
+        cfg_d['DATA_CONFIG']['INFO_PATH'] = {'train': [str(info)],
+                                             'test': [str(KITTI / 'kitti_infos_val.pkl')]}
+    cfg_file = out / f'{path.stem}_fixture.yaml'
+    cfg_file.write_text(yaml.safe_dump(cfg_d))
+    return cfg_file
+
+
+def parta2_roi_times(model, run):
+    """ms of the RoI head's parts in one run() (CUDA events): the proposal
+    NMS (and in training the RoI sampling), RoI-aware pooling of both grids,
+    the four masked conv blocks, the FC layers with the decode."""
+    head = model.roi_head
+    names = ('start', 'pool0', 'pool1', 'convs', 'end')
+    ev = {k: torch.cuda.Event(enable_timing=True) for k in names}
+    orig = head.pooled_grids
+
+    def pooled(bd):
+        ev['pool0'].record()
+        grids = orig(bd)
+        ev['pool1'].record()
+        return grids
+    handles = [head.register_forward_pre_hook(lambda m, a: ev['start'].record()),
+               head.rpn_conv2.register_forward_hook(lambda m, a, o: ev['convs'].record()),
+               head.register_forward_hook(lambda m, a, o: ev['end'].record())]
+    head.pooled_grids = pooled
+    try:
+        sync()
+        run()
+        sync()
+    finally:
+        del head.pooled_grids
+        for h in handles:
+            h.remove()
+    return {part: ev[a].elapsed_time(ev[b]) for part, a, b in (
+        ('proposals', 'start', 'pool0'), ('roiaware_pool', 'pool0', 'pool1'),
+        ('conv_stack', 'pool1', 'convs'), ('fc_and_decode', 'convs', 'end'))}
+
+
+def roiaware_pool_stats(model, batch, label):
+    """The forward's two `roiaware_pool3d_batch` calls alone ('avg' of the
+    part features, 'max' of the point features) on their captured inputs:
+    time (CUDA events, mean of 5), the memory they take beyond their inputs,
+    and the byte bound (every input read once, the grid written once, at
+    HBM_BYTES_S); the (RoI, point) pairs and channels."""
+    from fv2p_torch.models.roi_heads import partA2_head
+    from fv2p_torch.ops import roiaware_pool
+    calls = []
+    orig = partA2_head.roiaware_pool3d_batch
+
+    def rec(*a):
+        calls.append(a)
+        return orig(*a)
+    partA2_head.roiaware_pool3d_batch = rec
+    try:
+        forward(model, batch)
+        sync()
+    finally:
+        partA2_head.roiaware_pool3d_batch = orig
+    out = {}
+    for pts, feats, valid, rois, s, method in calls:
+        def fn(a=(pts, feats, valid, rois, s, method)):
+            return roiaware_pool.roiaware_pool3d_batch(*a)
+        ms = time_events(fn, reps=5)
+        sync()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        grid = fn()
+        sync()
+        peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        n_bytes = sum(t.numel() * t.element_size() for t in (pts, feats, valid, rois)) \
+            + grid.numel() * grid.element_size()
+        out[method] = {'ms': ms, 'transient_gib': peak, 'bound_ms': n_bytes / HBM_BYTES_S * 1e3,
+                       'pairs': int(rois.shape[0] * rois.shape[1] * pts.shape[1]),
+                       'channels': int(feats.shape[-1]), 'grid_shape': list(grid.shape)}
+        del grid
+    log(f'# {label} RoI-aware pooling alone: ' + '; '.join(
+        f'{m} {r["ms"]:.3f} ms over {r["pairs"]} pairs x {r["channels"]} channels, '
+        f'{r["transient_gib"]:.3f} GiB beyond its inputs, byte bound {r["bound_ms"]:.4f} ms'
+        for m, r in out.items()))
+    return out
+
+
+def parta2_train_targets(out):
+    """Foreground counts of one PartA2 train forward: positive anchors (none
+    for PartA2_free), foreground points, foreground (regressed) RoIs and
+    the sampled RoIs."""
+    rec = {'foreground_points': int((out['point_head_ret']['point_cls_labels'] > 0).sum()),
+           'foreground_rois': int(out['roi_head_ret']['reg_valid_mask'].sum()),
+           'sampled_rois': int(out['roi_head_ret']['reg_valid_mask'].numel())}
+    if 'anchor_head_ret' in out:
+        rec['positive_anchors'] = int((out['anchor_head_ret']['box_cls_labels'] > 0).sum())
+    return rec
+
+
+def proposal_head(model):
+    """The module whose forward leaves the proposals: the anchor head, or
+    PartA2_free's part head."""
+    return model.dense_head if hasattr(model, 'dense_head') else model.point_head
+
+
+def parta2_eval(kernels, rows, label, cfg, meta, batch, later, batch_size):
+    """A PartA2 yaml's bf16 forward at full width on `batch`, BatchNorm
+    calibrated, counted (B1 alone, at least twice a scan), its calls held to
+    the plain version and timed (`label`_* keys), the NMS keeps identical
+    on both routes. Returns (record, model, post)."""
+    model = make_model(cfg, meta, torch.bfloat16, calibrate_on=batch)
+    rec = {'parameters': sum(p.numel() for p in model.parameters()),
+           'voxels_per_scan': batch['voxel_valid'].sum(1).tolist()}
+    post = int(cfg.MODEL.POST_PROCESSING.NMS_CONFIG.NMS_POST_MAXSIZE)
+    head_io = {}
+    hook = proposal_head(model).register_forward_hook(lambda m, a, o: head_io.update(
+        box=o['batch_box_preds'].clone(), cls=o['batch_cls_preds'].clone()))
+    out, calls, launches = counted_forward(kernels, model, batch, label, PARTA2_LAUNCHED)
+    hook.remove()
+    rec['launches'] = launches
+    if launches['rotated_iou'] < 2 * batch_size:
+        fail(f'{label}: B1 launched {launches["rotated_iou"]} times, expected at least '
+             f'{2 * batch_size}')
+    keys = ('batch_box_preds', 'batch_cls_preds', 'point_features', 'point_part_offset')
+    rec['valid_detections'] = check_outputs(out, post, keys, batch_size)
+    rec['proposals'] = grid_nms_keeps(kernels, model, label, head_io, out)
+    rec['point_rows'] = out['point_valid'].sum(1).tolist()
+    log(f'# {label}: {rec["parameters"]} parameters, {rec["voxels_per_scan"]} voxels a scan, '
+        f'{rec["valid_detections"]} valid detections over {batch_size} scans; B1 calls '
+        f'{[list(a[0].shape) for _, a in calls["rotated_iou"].calls][:6]}...')
+    del out, head_io
+    train_kernel_rows(calls, launches, rows, prefix=label)
+    later.append((label, calls['rotated_iou']))
+    return rec, model, post
+
+
+def _parta2_f32_step(step, batch, kernels):
+    """Loss terms, gradients, proposal keeps and sampled RoIs of one f32
+    train step, through the plain versions when `kernels` is given."""
+    from fv2p_torch.models.roi_heads import pvrcnn_head
+    props = []
+    prop_fn = pvrcnn_head.proposal_layer
+
+    def prop_rec(*a):
+        props.append(prop_fn(*a))
+        return props[-1]
+    pvrcnn_head.proposal_layer = prop_rec
+    try:
+        terms, grads, out = _zoo_f32_step(step, batch, kernels)
+    finally:
+        pvrcnn_head.proposal_layer = prop_fn
+    return terms, grads, props, out['roi_head_ret']['rois_sampled'].detach()
+
+
+def parta2_one_step(kernels, label, path):
+    """One counted bf16 train step of the yaml at `path` (`fixture_classes`)
+    on the fixture's first BATCH train samples, the gt among the proposals:
+    every loss term finite, foreground RoIs, the RCNN regression above 0.
+    Returns the terms and targets."""
+    from fv2p_torch.datasets import dataset_meta_from_cfg
+    from fv2p_torch.ops import cuda as kcuda
+    cfg = fixture_classes(load_cfg(path), training=True)
+    step = make_train_step(cfg, dataset_meta_from_cfg(cfg.DATA_CONFIG, 'train'),
+                           torch.bfloat16)
+    hook = gt_proposals(proposal_head(step.model))
+    terms, _, out = counted_train_step(kcuda, step, fixture_batch(cfg, training=True),
+                                       PARTA2_LAUNCHED, keep_out=True)
+    hook.remove()
+    rec = {'terms': {k: float(v) for k, v in terms.items()},
+           'targets': parta2_train_targets(out)}
+    if not all(np.isfinite(v) for v in rec['terms'].values()) or \
+            rec['terms']['rcnn_loss_reg'] <= 0 or rec['targets']['foreground_rois'] <= 0:
+        fail(f'{label}: {path.name} step {rec}')
+    log(f'# {label}: {path.name} bf16 step terms {rec["terms"]}; targets {rec["targets"]}')
+    del step, out
+    torch.cuda.empty_cache()
+    return rec
+
+
+def kitti_parta2_phase(kernels, rows, later):
+    """kitti_models/PartA2.yaml at full width on the first BATCH val scans of
+    data/kitti through KittiDataset (the 40000-voxel test cap, host tables
+    at the derived level capacities), bf16, BatchNorm calibrated: counted
+    (B1 alone), every call held to the plain version and timed
+    (`kitti_parta2_*` keys), NMS keeps identical, the f32 forward through
+    the kernel against the plain version; the forward's median, per module,
+    the RoI head by part, peak memory, and RoI-aware pooling alone beside
+    its byte bound. Returns the record."""
+    from fv2p_torch.datasets import dataset_meta_from_cfg
+    label = 'kitti_parta2'
+    cfg = load_cfg(PARTA2_CFG)
+    meta = dataset_meta_from_cfg(cfg.DATA_CONFIG, 'test')
+    batch = fixture_batch(cfg, training=False)
+    rec, model, post = parta2_eval(kernels, rows, label, cfg, meta, batch, later, BATCH)
+    rec['f32_kernel_vs_plain_max_abs'] = f32_forward(
+        kernels, cfg, meta, batch, post,
+        ('batch_box_preds', 'batch_cls_preds', 'point_features', 'point_part_offset'), label,
+        ('pred_boxes', 'pred_scores', 'batch_box_preds', 'batch_cls_preds'), calibrate=True)
+    rec.update(forward_stats(model, batch, label))
+    passes = [parta2_roi_times(model, lambda: forward(model, batch)) for _ in range(MODULE_REPS)]
+    rec['roi_head_ms'] = {k: float(np.median([p[k] for p in passes])) for k in passes[0]}
+    log(f'# {label} roi_head by part (ms, median of {MODULE_REPS}): '
+        f'{ {k: round(v, 3) for k, v in rec["roi_head_ms"].items()} }')
+    rec['roiaware_pool'] = roiaware_pool_stats(model, batch, label)
+    rec['host_syncs'], rec['host_sync_sites'] = host_syncs(lambda: forward(model, batch))
+    log(f'# {label} host waits in one forward: {rec["host_syncs"]}; by line: '
+        f'{rec["host_sync_sites"]}')
+    del model, batch
+    torch.cuda.empty_cache()
+    return rec
+
+
+def kitti_parta2_train_phase(kernels, rows):
+    """PartA2 training on data/kitti's first BATCH train samples (gt
+    sampling and every augmentation, the 16000-voxel train cap; PartA2.yaml
+    cut to FIXTURE_CLASSES and their anchors, at fv2p.yaml's train level
+    capacities: `fixture_classes`), jittered gt boxes among the
+    proposals (`gt_proposals` on the anchor head): an f32 step through the
+    kernel and through the plain version under `deterministic` (proposal
+    keeps and sampled RoIs identical, loss terms and gradients as FV2P's:
+    without it, RoI-aware pooling's 'avg' sums and cuDNN's 3D weight
+    gradients add in no fixed order, and single gradient tensors part by
+    up to 6e-4 of their largest element), 2 + 5 bf16 steps (B1
+    every step, every loss term finite, the RCNN regression above 0 every
+    step, foreground points and RoIs in the first), the train step per
+    module and the RoI head by part, one more step's calls held to the
+    plain version (`kitti_parta2_train_*` keys); one bf16 step each of
+    PartA2_car.yaml and PartA2_free.yaml; fv2p_torch.tools.test over the 24
+    val scans (`kitti_parta2_test_*` keys, AP finite); and the train runner
+    on the train split's first PARTA2_RUNNER_SCANS scans of PartA2_car.yaml:
+    OPTIMIZER sgd at batch 1 with --profile_steps 2,3 (the trace must hold
+    CUDA kernel events), then OPTIMIZER adam, one step at batch 4 (peak LR
+    KITTI_TRAIN_LR in both, C3). Returns the record."""
+    import json as json_
+    import shutil
+    from fv2p_torch.datasets import dataset_meta_from_cfg
+    from fv2p_torch.ops import cuda as kcuda
+    from fv2p_torch.tools import train as train_runner
+    label = 'kitti_parta2_train'
+    cfg = fixture_classes(load_cfg(PARTA2_CFG), training=True)
+    tmeta = dataset_meta_from_cfg(cfg.DATA_CONFIG, 'train')
+    batch = fixture_batch(cfg, training=True)
+    rec = {'gt_boxes': int((batch['gt_boxes'][..., 7] > 0).sum()),
+           'voxels_per_scan': batch['voxel_valid'].sum(1).tolist()}
+    with full_f32(), deterministic():
+        step = make_train_step(cfg, tmeta, None)
+        hook = gt_proposals(step.model.dense_head)
+        tk, gk, nk, rk = _parta2_f32_step(step, batch, None)
+        tp, gp, np_, rp = _parta2_f32_step(step, batch, kernels)
+        hook.remove()
+    if len(nk) != 1 or not all(torch.equal(a, b) for a, b in zip(nk[0], np_[0])):
+        fail(f'{label} f32 step: proposal NMS keeps differ between kernel and plain')
+    if not torch.equal(rk, rp):
+        fail(f'{label} f32 step: sampled RoIs differ between kernel and plain')
+    frec = rec['f32_kernel_vs_plain'] = compare_train_steps(f'{label} f32 step', tk, tp, gk,
+                                                            gp)
+    log(f'# {label} f32 step (deterministic algorithms), kernel vs plain version: proposal '
+        f'keeps and sampled RoIs identical; loss terms max relative difference '
+        f'{max(frec["loss_rel_diff"].values()):.3g}; worst gradient '
+        f'{frec["grad_worst_rel_to_max"]:.3g} of its max')
+    del step
+    torch.cuda.empty_cache()
+
+    step = make_train_step(cfg, tmeta, torch.bfloat16)
+    hook = gt_proposals(step.model.dense_head)
+    trec = rec['train'] = timed_train_steps(kcuda, step, batch, PARTA2_LAUNCHED,
+                                            parta2_train_targets)
+    first = trec['first_step_targets']
+    if first['foreground_points'] <= 0 or first['foreground_rois'] <= 0:
+        fail(f'{label}: first step targets {first}')
+    if not all(x > 0 for x in trec['loss_terms']['rcnn_loss_reg']):
+        fail(f'{label}: rcnn_loss_reg {trec["loss_terms"]["rcnn_loss_reg"]}')
+    log(f'# {label} bf16 step at batch {BATCH} ({rec["gt_boxes"]} gt boxes), ms median '
+        f'(quartiles) of {TRAIN_TIMED}: ' + ', '.join(
+            f'{k} {v["median"]:.2f} ({v["q1"]:.2f}-{v["q3"]:.2f})' for k, v in trec['ms'].items())
+        + f'; peak {trec["peak_mem_gib"]:.2f} GiB; loss '
+        f'{[round(x, 3) for x in trec["loss_terms"]["loss"]]}; first step {first}')
+    passes = [module_times(step.model, lambda: step.step(batch), tail='loss_backward_optimizer')
+              for _ in range(MODULE_REPS)]
+    trec['per_module_ms'] = {m: float(np.median([p[m] for p in passes])) for m in passes[0]}
+    passes = [parta2_roi_times(step.model, lambda: step.step(batch)) for _ in range(MODULE_REPS)]
+    trec['roi_head_ms'] = {k: float(np.median([p[k] for p in passes])) for k in passes[0]}
+    log(f'# {label} step per module (ms, median of {MODULE_REPS}): '
+        f'{ {k: round(v, 2) for k, v in trec["per_module_ms"].items()} }; roi_head forward '
+        f'by part {({k: round(v, 3) for k, v in trec["roi_head_ms"].items()})}')
+    tcalls, rec['launches'] = captured_train_calls(kernels, step, batch, PARTA2_LAUNCHED)
+    train_kernel_rows(tcalls, rec['launches'], rows, prefix=label)
+    hook.remove()
+    del step, tcalls, batch
+    torch.cuda.empty_cache()
+
+    rec['car_step'] = parta2_one_step(kernels, label, PARTA2_CAR_CFG)
+    rec['free_step'] = parta2_one_step(kernels, label, PARTA2_FREE_CFG)
+
+    out = REPO / 'output' / 'chip_smoke' / 'kitti_parta2'
+    out.mkdir(parents=True, exist_ok=True)
+    cfg_file = fixture_cfg_file(PARTA2_CFG, out)
+    t0 = time.perf_counter()
+    ret, rec['test_launches'], _ = counted_test_run(
+        kernels, rows, 'kitti_parta2_test',
+        ['--cfg_file', str(cfg_file), '--workers', str(SHORT_RUN_WORKERS), '--output_dir',
+         str(out / 'test')], PARTA2_LAUNCHED)
+    rec['test_s'] = time.perf_counter() - t0
+    ap = {k: v for k, v in ret.items() if k.startswith('Car_3d/')}
+    if not ap or any(not np.isfinite(v) for v in ret.values()):
+        fail(f'{label}: no Car AP or a test result not finite: {ret}')
+    rec['test'] = {k: ret[k] for k in ('sec_per_example', 'loader_wait_s_per_batch',
+                                       'forward_ms_median')}
+    rec['test_ap_car_3d'] = ap
+    log(f'# kitti_parta2_test: {rec["test_s"]:.1f} s over the val scans, '
+        f'{ret["sec_per_example"] * 1e3:.2f} ms a scan, forward median '
+        f'{ret["forward_ms_median"]:.2f} ms a batch; launches {rec["test_launches"]}; {ap}')
+
+    # the runner's optimizers and --profile_steps on the card
+    car_file = fixture_cfg_file(PARTA2_CAR_CFG, out, n_train=PARTA2_RUNNER_SCANS)
+    runs = {}
+    for name, extra in (('sgd', ['--batch_size', '1', '--profile_steps', '2,3']),
+                        ('adam', ['--batch_size', str(PARTA2_RUNNER_SCANS)])):
+        run_dir = out / f'runner_{name}'
+        shutil.rmtree(run_dir, ignore_errors=True)     # a checkpoint there would resume
+        t0 = time.perf_counter()
+        run = train_runner.main(['--cfg_file', str(car_file), '--workers',
+                                 str(SHORT_RUN_WORKERS), '--epochs', '1', '--output_dir',
+                                 str(run_dir), *extra, '--set', 'OPTIMIZATION.OPTIMIZER', name,
+                                 'OPTIMIZATION.LR', str(KITTI_TRAIN_LR)])
+        sync()
+        steps = run['steps']
+        state = run['trainer'].optimizer.state_dict()
+        runs[name] = {'steps': len(steps), 'loss': [s['loss'] for s in steps],
+                      'wall_s': time.perf_counter() - t0,
+                      'state': sorted(k for k in state if k != 'count')}
+        want_state = ['trace'] if name == 'sgd' else ['mu', 'nu']
+        if not steps or any(not np.isfinite(v) for s in steps for v in s.values()) or \
+                runs[name]['state'] != want_state:
+            fail(f'{label} runner {name}: {runs[name]}')
+        if name == 'sgd':
+            trace = run.get('profile')
+            if trace is None or not trace.exists():
+                fail(f'{label}: --profile_steps 2,3 wrote no trace')
+            events = json_.loads(trace.read_text())['traceEvents']
+            kernels_in = [e for e in events if e.get('cat') == 'kernel']
+            runs[name].update(trace=str(trace.relative_to(REPO)),
+                              trace_mb=trace.stat().st_size / 2 ** 20,
+                              trace_cuda_kernels=len(kernels_in),
+                              trace_b1_kernels=sum('overlap_kernel' in e.get('name', '')
+                                                   for e in kernels_in))
+            if not kernels_in:
+                fail(f'{label}: the --profile_steps trace holds no CUDA kernel event')
+        del run
+    rec['runner'] = runs
+    log(f'# {label} runner: ' + '; '.join(
+        f'{n}: {r["steps"]} steps, loss {[round(x, 3) for x in r["loss"]]}, state {r["state"]}'
+        for n, r in runs.items())
+        + f'; --profile_steps 2,3 trace {runs["sgd"]["trace_mb"]:.1f} MB, '
+        f'{runs["sgd"]["trace_cuda_kernels"]} CUDA kernel events '
+        f'({runs["sgd"]["trace_b1_kernels"]} of B1)')
+    torch.cuda.empty_cache()
+    return rec
+
+
+def waymo_parta2_phase(kernels, rows, later):
+    """waymo_models/PartA2.yaml at full width in bf16 on WAYMO_BATCH val
+    frames of data/waymo (the 90000-voxel test cap, host tables at
+    waymo_fv2p_e30.yaml's level capacities, as waymo_pv_rcnn: the yaml sets
+    none, and the derived x_conv3 cap is under the rows these frames fill
+    there), BatchNorm calibrated: counted (B1 alone),
+    every call held to the plain version and timed (`waymo_parta2_*` keys),
+    NMS keeps identical, the forward's median, per module, the RoI head by
+    part and RoI-aware pooling alone; then one counted bf16 train step on
+    WAYMO_BATCH train samples (gt sampling, the 80000-voxel cap; the yaml
+    cut to WAYMO_FIXTURE_CLASSES and their anchors), the gt among the
+    proposals: every loss term finite, the RCNN regression above 0. Returns
+    the record."""
+    from fv2p_torch.datasets import dataset_meta_from_cfg
+    from fv2p_torch.ops import cuda as kcuda
+    label = 'waymo_parta2'
+    cfg = load_cfg(WAYMO_PARTA2_CFG)
+    cfg.MODEL.BACKBONE_3D.LEVEL_CAPACITIES = load_cfg(
+        WAYMO_FV2P_CFG).MODEL.BACKBONE_3D.LEVEL_CAPACITIES
+    meta = dataset_meta_from_cfg(cfg.DATA_CONFIG, 'test')
+    batch, rec_caps = waymo_batch(cfg, training=False)
+    rec, model, _ = parta2_eval(kernels, rows, label, cfg, meta, batch, later, WAYMO_BATCH)
+    rec['max_active_rows'] = rec_caps
+    rec.update(forward_stats(model, batch, label, WAYMO_BATCH))
+    rec['roi_head_ms'] = parta2_roi_times(model, lambda: forward(model, batch))
+    log(f'# {label} roi_head by part (ms): '
+        f'{ {k: round(v, 3) for k, v in rec["roi_head_ms"].items()} }')
+    rec['roiaware_pool'] = roiaware_pool_stats(model, batch, label)
+    del model, batch
+    torch.cuda.empty_cache()
+
+    cfg.CLASS_NAMES = [c for c in cfg.CLASS_NAMES if c in WAYMO_FIXTURE_CLASSES]
+    fixture_model_cfg(cfg.MODEL, cfg.CLASS_NAMES)
+    tbatch, _ = waymo_batch(cfg, training=True)
+    step = make_train_step(cfg, dataset_meta_from_cfg(cfg.DATA_CONFIG, 'train'),
+                           torch.bfloat16)
+    hook = gt_proposals(step.model.dense_head)
+    torch.cuda.reset_peak_memory_stats()
+    terms, _, out = counted_train_step(kcuda, step, tbatch, PARTA2_LAUNCHED, keep_out=True)
+    sync()
+    hook.remove()
+    rec['train'] = {'terms': {k: float(v) for k, v in terms.items()},
+                    'targets': parta2_train_targets(out),
+                    'peak_mem_gib': torch.cuda.max_memory_allocated() / 2 ** 30}
+    if not all(np.isfinite(v) for v in rec['train']['terms'].values()) or \
+            rec['train']['terms']['rcnn_loss_reg'] <= 0:
+        fail(f'{label} train step: {rec["train"]}')
+    log(f'# {label} bf16 train step at batch {WAYMO_BATCH}: terms {rec["train"]["terms"]}; '
+        f'targets {rec["train"]["targets"]}; peak {rec["train"]["peak_mem_gib"]:.2f} GiB')
+    del step, out, tbatch
+    torch.cuda.empty_cache()
+    return rec
+
+
 # ------------------------------------------------------ data parallel
 
 DDP_TRAIN_SCANS = 8          # the torchrun run's train split: 4 steps at batch 2
 DDP_GLOBAL_BATCH = 4         # (b): two ranks of 2 scans on the one card
 # (a): the first step's terms of the two runs must agree to this relative
-# difference, later steps (unordered atomics in the backward, amplified by
-# Adam) to DDP_LATER_REL
+# difference, later steps (what an operation without a deterministic
+# implementation leaves, amplified by Adam) to DDP_LATER_REL
 DDP_FIRST_REL, DDP_LATER_REL = 1e-5, 1e-3
+
+
+# ddp (a)'s training runs: the runner under PyTorch's deterministic
+# algorithms (a warning where an operation has none) and cuDNN's
+# deterministic convolutions, so that float atomics add in a fixed order
+# (memory that an operation leaves unwritten is not filled, as in every
+# other run). Without them the two runs agreed to the bit in a process that had done
+# nothing else on the card, and parted from their third step after the
+# other phases
+DETERMINISTIC_TRAIN = """import runpy
+import sys
+
+import torch
+
+sys.path.insert(0, {repo!r})
+torch.use_deterministic_algorithms(True, warn_only=True)
+torch.utils.deterministic.fill_uninitialized_memory = False
+torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+runpy.run_module('fv2p_torch.tools.train', run_name='__main__', alter_sys=True)
+"""
 
 
 def ddp_cfg_file(out):
@@ -3825,7 +4371,6 @@ def ddp_cfg_file(out):
 def _gloo_rank(local, world, port, fn, args, result_path):
     """One rank of a gloo group on card 0 (NCCL refuses two ranks on one
     card): fn(*args), rank 0's return value saved to result_path."""
-    import os
     import torch.distributed as dist
     os.environ.update(RANK=str(local), LOCAL_RANK='0', WORLD_SIZE=str(world),
                       MASTER_ADDR='127.0.0.1', MASTER_PORT=str(port))
@@ -3994,7 +4539,6 @@ def wrapper_cost(cfg, meta):
     plain, twice), CUDA events around each step; the medians and each
     block's. The step is host-bound: a difference within the blocks' spread
     says nothing."""
-    import os
     import torch.distributed as dist
     from fv2p_torch import parallel
     batch, _, _ = train_inputs(cfg, meta, TRAIN_BATCH, TRAIN_POINTS)
@@ -4034,7 +4578,8 @@ def ddp_phase():
     (a) ``torchrun --standalone --nproc_per_node 1 -m fv2p_torch.tools.train
     --dist`` (NCCL) for one epoch of fv2p.yaml on data/kitti's first
     DDP_TRAIN_SCANS train scans at batch 2, against the same run without
-    --dist, both --fix_random_seed: the loss terms of every step agree
+    --dist, both --fix_random_seed and under deterministic algorithms
+    (DETERMINISTIC_TRAIN): the loss terms of every step agree
     (DDP_FIRST_REL on the first, DDP_LATER_REL after); and DDP's cost a
     step at one rank (``wrapper_cost``).
     (b) two gloo ranks on the one card (NCCL refuses two ranks on one
@@ -4059,33 +4604,46 @@ def ddp_phase():
     cfg_file = ddp_cfg_file(out)
     rec = {}
 
-    # (a)
-    common = ['-m', 'fv2p_torch.tools.train', '--cfg_file', str(cfg_file), '--workers', '0',
+    # (a), both runs under deterministic algorithms (DETERMINISTIC_TRAIN)
+    launcher = out / 'deterministic_train.py'
+    launcher.write_text(DETERMINISTIC_TRAIN.format(repo=str(REPO)))
+    common = [str(launcher), '--cfg_file', str(cfg_file), '--workers', '0',
               '--batch_size', '2', '--epochs', '1', '--fix_random_seed']
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=':4096:8')
     runs = {}
     for name, head in (('torchrun', [sys.executable, '-m', 'torch.distributed.run',
                                      '--standalone', '--nproc_per_node', '1']),
                        ('single', [sys.executable])):
         t0 = time.perf_counter()
         extra = ['--dist'] if name == 'torchrun' else []
-        subprocess.run(head + common + extra + ['--output_dir', str(out / name)], cwd=REPO,
-                       check=True, timeout=600, stdout=subprocess.DEVNULL)
+        proc = subprocess.run(head + common + extra + ['--output_dir', str(out / name)],
+                              cwd=REPO, env=env, timeout=600, stdout=subprocess.DEVNULL,
+                              stderr=subprocess.PIPE, text=True)
+        if proc.returncode:
+            sys.stderr.write(proc.stderr)
+            fail(f'ddp (a): the {name} run exited with {proc.returncode}')
         runs[name] = [json_mod.loads(ln) for ln in
                       (out / name / 'metrics.jsonl').read_text().splitlines()]
         rec[f'a_{name}_s'] = time.perf_counter() - t0
+        rec[f'a_{name}_nondeterministic_ops'] = sorted(set(re.findall(
+            r'(\w+) does not have a deterministic implementation', proc.stderr)))
     a, b = runs['torchrun'], runs['single']
     if len(a) != len(b) or len(a) != DDP_TRAIN_SCANS // 2:
         fail(f'ddp (a): {len(a)} steps with --dist, {len(b)} without')
-    rel = [max(abs(x[k] - y[k]) / max(abs(y[k]), 1e-30) for k in y if k not in ('epoch', 'it'))
-           for x, y in zip(a, b)]
-    rec['a_step_rel_diff'] = rel
+    def term_rel(x, y, k):
+        return abs(x[k] - y[k]) / max(abs(y[k]), 1e-30)
+    terms = [k for k in b[0] if k not in ('epoch', 'it')]
+    worst = [max(terms, key=lambda k: term_rel(x, y, k)) for x, y in zip(a, b)]
+    rel = [term_rel(x, y, k) for x, y, k in zip(a, b, worst)]
+    rec['a_step_rel_diff'], rec['a_step_worst_term'] = rel, worst
     if rel[0] > DDP_FIRST_REL or max(rel) > DDP_LATER_REL:
         fail(f'ddp (a): loss terms with --dist differ from the run without by {rel} '
-             f'(relative, by step)')
+             f'(relative, by step; the terms {worst})')
     log(f'# ddp (a): torchrun --nproc_per_node 1 --dist (NCCL) against no --dist, '
-        f'{len(a)} steps: largest relative difference of a loss term by step {rel}; '
-        f'losses {[round(s["loss"], 4) for s in a]} ({rec["a_torchrun_s"]:.1f} s and '
-        f'{rec["a_single_s"]:.1f} s a run)')
+        f'deterministic algorithms, {len(a)} steps: largest relative difference of a loss '
+        f'term by step {rel}; losses {[round(s["loss"], 4) for s in a]} '
+        f'({rec["a_torchrun_s"]:.1f} s and {rec["a_single_s"]:.1f} s a run); operations '
+        f'without a deterministic implementation {rec["a_torchrun_nondeterministic_ops"]}')
     cfg = load_cfg(CFG)
     rec['wrapper'] = wrapper_cost(cfg, dataset_meta_from_cfg(cfg.DATA_CONFIG, 'train'))
     w = rec['wrapper']
@@ -4180,6 +4738,7 @@ def main():
     bounds = {'rotated_iou': bound_rotated_iou, 'fps': bound_fps,
               'three_nn': bound_three_nn, 'sa_group': bound_sa_group}
     by_name = {k.name: k for k in kernels}
+    lap('build')
 
     # 2-3. the models and the bench batch (built on the host, copied once);
     # MGAF's bench batch is FV2P's: the same meta, the voxels drawn first
@@ -4482,7 +5041,17 @@ def main():
     lap('kitti_pointrcnn')
     prec['train'] = kitti_pointrcnn_train_phase(kernels, rows)
     lap('kitti_pointrcnn_train')
-    # 9k. data parallel: torchrun at one rank, two gloo ranks on the card
+    # 9l. PartA2 on data/kitti at full width (eval, train steps, the three
+    # KITTI yamls, the test runner, the runner's optimizers and profiler),
+    # then on data/waymo
+    parec = {'eval': kitti_parta2_phase(kernels, rows, later)}
+    lap('kitti_parta2')
+    parec['train'] = kitti_parta2_train_phase(kernels, rows)
+    lap('kitti_parta2_train')
+    parec['waymo'] = waymo_parta2_phase(kernels, rows, later)
+    lap('waymo_parta2')
+    # 9m. data parallel: torchrun at one rank against no --dist, two gloo
+    # ranks on the card
     ddp_rec = ddp_phase()
     lap('ddp')
 
@@ -4532,7 +5101,7 @@ def main():
     record.update(launches=launches, kernels=rows, nvidia_smi=smi,
                   valid_detections=n_valid, mgaf=mrec, train=trec, mgaf_train=mtrec,
                   kitti=krec, device_rulebooks=drec, zoo=zrec, nuscenes=nrec, grid=grec,
-                  waymo=wrec, pointrcnn=prec, ddp=ddp_rec, phase_s=phase_s,
+                  waymo=wrec, pointrcnn=prec, parta2=parec, ddp=ddp_rec, phase_s=phase_s,
                   wall_s=time.perf_counter() - T_START)
     log(f'# seconds by phase: { {k: round(v, 1) for k, v in phase_s.items()} }')
     log(f'# chip_smoke.py wall time {record["wall_s"]:.1f} s')

@@ -105,14 +105,16 @@ class Rulebooks:
         return self
 
     @classmethod
-    def on_device(cls, batch_dict, shapes, caps_override, training):
+    def on_device(cls, batch_dict, shapes, caps_override, training, downs=DOWNS):
+        """The tables of the strided layers ``downs`` (a leading part of
+        DOWNS) and of their levels, built from the voxels."""
         self = cls()
         st = self.input = input_sparse_tensor(batch_dict, shapes['x_conv1'])
         b, cap = batch_dict['voxel_coords'].shape[:2]
         caps = device_capacities(b, cap, caps_override, training)
         self.subm = {'x_conv1': rulebook.subm_rulebook(st, 3)}
         self.down, dropped = {}, []
-        for src, dst, k, s, p in DOWNS:
+        for src, dst, k, s, p in downs:
             out, nbr, inv, drop = rulebook.downsample_rulebook(st, k, s, p, caps[dst])
             self.down[dst] = (out, nbr, inv)
             dropped.append(drop)
@@ -138,11 +140,11 @@ class _SparseBackbone(nn.Module):
         for src, dst, k, s, p in DOWNS:
             self.shapes[dst] = rulebook.out_shape(self.shapes[src], k, s, p)
 
-    def rulebooks(self, batch_dict):
+    def rulebooks(self, batch_dict, downs=DOWNS):
         if self.host_tables and batch_dict.get('rulebooks') is not None:
             return Rulebooks.from_host(batch_dict, self.shapes)
         return Rulebooks.on_device(batch_dict, self.shapes, self.level_caps,
-                                   self.training)
+                                   self.training, downs)
 
     @staticmethod
     def _output(batch_dict, levels, out, overflow):
@@ -236,9 +238,3 @@ class VoxelBackBone8x(_SparseBackbone):
 
 BACKBONES = {'VoxelResBackBone8x': VoxelResBackBone8x,
              'VoxelBackBone8x': VoxelBackBone8x}
-
-
-def reads_host_tables(backbone_name):
-    """Whether the named backbone takes the loader's host rulebooks (a
-    point backbone, PointNet2MSG, takes no voxels at all)."""
-    return backbone_name in BACKBONES and BACKBONES[backbone_name].host_tables

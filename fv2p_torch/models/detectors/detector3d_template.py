@@ -2,15 +2,17 @@
 ``fv2p_tpu/models/detectors/detector3d_template.py``), restricted to the
 detectors and modules ported so far: FV2P, MGAF-3DSSD, SECOND and
 PointPillar (with the single or the multihead anchor head), PV-RCNN,
-Voxel R-CNN and PointRCNN, inference and training.
+Voxel R-CNN, PointRCNN and PartA2 (PartA2_free is PointRCNN's detector
+over PartA2's modules), inference and training: every yaml under
+``tools/cfgs/*_models/`` builds.
 
 Each of the 9 slots of the module topology is built iff its config key
 exists, and the forward runs the built slots in that order on one batch
 dict of tensors. In eval mode it then post-processes into fixed-shape
 (B, post_max) outputs; in train mode it skips post-processing, keeps
 autograd on, and each head leaves its targets and predictions for
-``compute_training_loss``. A slot or detector that is not ported raises
-NotImplementedError naming the ROADMAP queue."""
+``compute_training_loss``. A slot module or detector that the port does
+not have raises NotImplementedError naming it."""
 import torch
 from torch import nn
 
@@ -22,6 +24,7 @@ from ..backbones_3d.pfe.residual_v2p_decoder import ResidualVoxelToPointDecoder
 from ..backbones_3d.pfe.voxel_set_abstraction import VoxelSetAbstraction
 from ..backbones_3d.pointnet2_backbone import PointNet2MSG
 from ..backbones_3d.spconv_backbone import BACKBONES
+from ..backbones_3d.spconv_unet import UNetV2
 from ..backbones_3d.vfe.mean_vfe import MeanVFE
 from ..backbones_3d.vfe.pillar_vfe import PillarVFE
 from ..dense_heads.anchor_head import AnchorHeadSingle, anchor_head_loss
@@ -29,7 +32,10 @@ from ..dense_heads.anchor_head_multi import AnchorHeadMulti, anchor_head_multi_l
 from ..dense_heads.center_af_head import CenterAFHeadSingle, center_af_head_loss
 from ..dense_heads.point_head_box import PointHeadBox, point_head_box_loss
 from ..dense_heads.point_head_simple import PointHeadSimple, point_head_loss
+from ..dense_heads.point_intra_part_head import (PointIntraPartOffsetHead,
+                                                 point_intra_part_head_loss)
 from ..roi_heads.iouguided_roi_head import IoUGuidedRoIHead, roi_head_loss
+from ..roi_heads.partA2_head import PartA2FCHead, parta2_head_loss
 from ..roi_heads.pointrcnn_head import PointRCNNHead, pointrcnn_head_loss
 from ..roi_heads.pvrcnn_head import PVRCNNHead, pvrcnn_head_loss
 from ..roi_heads.voxelrcnn_head import VoxelRCNNHead, voxelrcnn_head_loss
@@ -45,21 +51,20 @@ _SLOT_KEYS = {'vfe': 'VFE', 'backbone_3d': 'BACKBONE_3D',
               'post_pfe': 'POST_PFE', 'point_head': 'POINT_HEAD',
               'roi_head': 'ROI_HEAD'}
 _PORTED = {'VFE': ('MeanVFE', 'PillarVFE'),
-           'BACKBONE_3D': ('VoxelResBackBone8x', 'VoxelBackBone8x', 'PointNet2MSG'),
+           'BACKBONE_3D': ('VoxelResBackBone8x', 'VoxelBackBone8x', 'PointNet2MSG', 'UNetV2'),
            'MAP_TO_BEV': ('HeightCompression', 'PointPillarScatter'),
            'PFE': ('VoxelSetAbstraction',),
            'BACKBONE_2D': ('BaseBEVBackbone', 'DCNBEVBackbone'),
            'DENSE_HEAD': ('AnchorHeadSingle', 'AnchorHeadMulti', 'CenterAFHeadSingle'),
            'POST_PFE': ('ResidualVoxelToPointDecoder',),
-           'POINT_HEAD': ('PointHeadSimple', 'PointHeadBox'),
+           'POINT_HEAD': ('PointHeadSimple', 'PointHeadBox', 'PointIntraPartOffsetHead'),
            'ROI_HEAD': ('IoUGuidedRoIHead', 'PVRCNNHead', 'VoxelRCNNHead', 'PointRCNNHead',
-                        'PointRCNNIoUHead')}
+                        'PointRCNNIoUHead', 'PartA2FCHead')}
 
 
 def _not_ported(what):
-    return NotImplementedError(
-        f'{what} is not in fv2p_torch yet (ROADMAP.md, queue A: training, '
-        'the runner, multi-GPU, the rest of the model zoo)')
+    return NotImplementedError(f'{what} is not in fv2p_torch (no yaml under tools/cfgs '
+                               'names it)')
 
 
 class Detector3DTemplate(nn.Module):
@@ -67,7 +72,7 @@ class Detector3DTemplate(nn.Module):
     then ``final_predictions``: IoU-score-ranked NMS
     (``post_processing_withfgscores``) for FV2P and MGAF-3DSSD, cls-score
     NMS (``post_processing``) for SECOND, PointPillar, PV-RCNN, Voxel
-    R-CNN and PointRCNN."""
+    R-CNN, PointRCNN and PartA2."""
 
     def __init__(self, model_cfg, num_class, class_names, dataset_meta,
                  compute_dtype=None):
@@ -101,6 +106,9 @@ class Detector3DTemplate(nn.Module):
         cfg, meta = self.model_cfg.BACKBONE_3D, self.dataset_meta
         if cfg.NAME == 'PointNet2MSG':
             return PointNet2MSG(cfg, meta['num_point_features'])
+        if cfg.NAME == 'UNetV2':
+            return UNetV2(cfg, meta['num_point_features'], meta['grid_size'],
+                          meta['voxel_size'], meta['point_cloud_range'], self.compute_dtype)
         return BACKBONES[cfg.NAME](meta['num_point_features'], meta['grid_size'], self.compute_dtype,
                    level_caps=cfg.get('LEVEL_CAPACITIES'))
 
@@ -155,6 +163,9 @@ class Detector3DTemplate(nn.Module):
         cfg = self.model_cfg.POINT_HEAD
         if cfg.NAME == 'PointHeadBox':
             return PointHeadBox(cfg, self.backbone_3d.num_point_features, self.num_class)
+        if cfg.NAME == 'PointIntraPartOffsetHead':
+            return PointIntraPartOffsetHead(cfg, self.backbone_3d.num_point_features,
+                                            self.num_class)
         before = cfg.get('USE_POINT_FEATURES_BEFORE_FUSION', False)
         return PointHeadSimple(cfg, self._point_channels(before), self.num_class,
                                self.compute_dtype)
@@ -168,6 +179,8 @@ class Detector3DTemplate(nn.Module):
             # one module for both: TARGET_CONFIG.CLS_SCORE_TYPE selects the
             # rcnn_iou labels
             return PointRCNNHead(cfg, roi_classes, self.backbone_3d.num_point_features)
+        if cfg.NAME == 'PartA2FCHead':
+            return PartA2FCHead(cfg, roi_classes, self.backbone_3d.num_point_features)
         if cfg.NAME == 'VoxelRCNNHead':
             return VoxelRCNNHead(cfg, roi_classes, meta['point_cloud_range'],
                                  meta['voxel_size'], self.backbone_3d.level_channels)
@@ -312,10 +325,20 @@ class PointRCNN(Detector3DTemplate):
         return self.post_processing(batch_dict)
 
 
+class PartA2Net(Detector3DTemplate):
+    """Part-aware and part-aggregation two-stage detector: sparse UNet ->
+    BEV backbone -> anchor head (proposals) -> intra-object part head ->
+    RoI-aware pooling of the part and point features, dense masked 3D
+    convs -> cls-score NMS."""
+
+    def final_predictions(self, batch_dict):
+        return self.post_processing(batch_dict)
+
+
 DETECTOR_REGISTRY = {'FromVoxelToPoint': FromVoxelToPoint,
                      'MGAF3DSSD': MGAF3DSSD, 'SECONDNet': SECONDNet,
                      'PointPillar': PointPillar, 'PVRCNN': PVRCNN,
-                     'VoxelRCNN': VoxelRCNN, 'PointRCNN': PointRCNN}
+                     'VoxelRCNN': VoxelRCNN, 'PointRCNN': PointRCNN, 'PartA2Net': PartA2Net}
 
 
 def compute_training_loss(model, batch_dict):
@@ -323,8 +346,9 @@ def compute_training_loss(model, batch_dict):
     and PV-RCNN the RPN, point-head and RCNN losses summed, for Voxel
     R-CNN the RPN and RCNN losses, for MGAF-3DSSD the CenterAF head's eight
     terms, for SECOND and PointPillar the RPN loss alone (the multihead's
-    own loss with ``AnchorHeadMulti``), for PointRCNN the point box head's
-    and the RCNN losses.
+    own loss with ``AnchorHeadMulti``), for PointRCNN the point head's (the
+    box head's, or PartA2_free's part head's) and the RCNN losses, for
+    PartA2 the RPN, part-head and RCNN losses.
     Returns (loss, terms), every term a 0-d tensor, ``terms['loss']`` the
     total."""
     cfg = model.model_cfg
@@ -333,7 +357,9 @@ def compute_training_loss(model, batch_dict):
         tb['loss'] = rpn_loss
         return rpn_loss, tb
     if isinstance(model, PointRCNN):
-        point_loss, tb = point_head_box_loss(cfg.POINT_HEAD, batch_dict['point_head_ret'])
+        point_loss_fn = point_intra_part_head_loss \
+            if cfg.POINT_HEAD.NAME == 'PointIntraPartOffsetHead' else point_head_box_loss
+        point_loss, tb = point_loss_fn(cfg.POINT_HEAD, batch_dict['point_head_ret'])
         rcnn_loss, tb_r = pointrcnn_head_loss(cfg.ROI_HEAD, batch_dict['roi_head_ret'])
         tb.update(tb_r)
         loss = point_loss + rcnn_loss
@@ -356,8 +382,13 @@ def compute_training_loss(model, batch_dict):
     if isinstance(model, SECONDNet):
         tb['loss'] = rpn_loss
         return rpn_loss, tb
-    point_loss, tb_p = point_head_loss(cfg.POINT_HEAD, batch_dict['point_head_ret'])
-    rcnn_fn = pvrcnn_head_loss if isinstance(model, PVRCNN) else roi_head_loss
+    if isinstance(model, PartA2Net):
+        point_loss, tb_p = point_intra_part_head_loss(cfg.POINT_HEAD,
+                                                      batch_dict['point_head_ret'])
+        rcnn_fn = parta2_head_loss
+    else:
+        point_loss, tb_p = point_head_loss(cfg.POINT_HEAD, batch_dict['point_head_ret'])
+        rcnn_fn = pvrcnn_head_loss if isinstance(model, PVRCNN) else roi_head_loss
     rcnn_loss, tb_r = rcnn_fn(cfg.ROI_HEAD, batch_dict['roi_head_ret'])
     tb.update(tb_p)
     tb.update(tb_r)

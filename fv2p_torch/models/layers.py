@@ -1,6 +1,6 @@
 """Layers with the numerics of the reference's flax layers.
 
-``Dense``/``Conv2d``/``ConvTranspose2d`` keep f32 weights and compute in
+``Dense``/``Conv2d``/``Conv3d``/``ConvTranspose2d`` keep f32 weights and compute in
 ``compute_dtype`` when one is set (input and weights cast to it, output in
 it); without one they compute in f32, as flax infers from f32 parameters.
 ``BatchNorm`` is flax's BatchNorm (epsilon 1e-3 unless given, momentum
@@ -52,6 +52,23 @@ class Conv2d(nn.Conv2d):
         b = None if self.bias is None else self.bias.to(dt)
         return F.conv2d(x.to(dt), self.weight.to(dt), b, self.stride,
                         self.padding)
+
+
+class Conv3d(nn.Conv3d):
+    """flax ``nn.Conv`` with a 3-D kernel on NCDHW tensors, explicit padding
+    (flax's grid is channels-last, (N, X, Y, Z, C); torch's is (N, C, X, Y,
+    Z); the weight loader turns the (kX, kY, kZ, I, O) kernel into (O, I,
+    kX, kY, kZ))."""
+
+    def __init__(self, cin, cout, kernel_size, padding=0, bias=True,
+                 compute_dtype=None):
+        super().__init__(cin, cout, kernel_size, padding=padding, bias=bias)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x):
+        dt = _dt(self.compute_dtype, x)
+        b = None if self.bias is None else self.bias.to(dt)
+        return F.conv3d(x.to(dt), self.weight.to(dt), b, self.stride, self.padding)
 
 
 class ConvTranspose2d(nn.ConvTranspose2d):

@@ -2,12 +2,14 @@
 ``fv2p_tpu/models/roi_heads/pvrcnn_head.py``), and the RoI-grid head it
 shares with Voxel R-CNN's.
 
-``RoIGridHead`` takes the proposals of the dense head's predictions (one
+``RoIFCHead`` takes the proposals of the dense head's predictions (one
 rotated NMS a scan, kernel B1), in training samples ROI_PER_IMAGE of them a
-scan with their targets (``assign_targets``: B1 again in the 3D IoU), puts
-GRID_SIZE^3 grid points in each RoI, pools features at them (``pool``, the
-subclass's), and runs the shared FC layers and the class and box heads;
-in eval mode it decodes the boxes in the RoI's frame. ``PVRCNNHead`` pools
+scan with their targets (``assign_targets``: B1 again in the 3D IoU), takes
+each RoI's features from its subclass (``roi_features``) and runs the
+shared FC layers and the class and box heads; in eval mode it decodes the
+boxes in the RoI's frame. ``RoIGridHead``'s features are pooled at
+GRID_SIZE^3 grid points in each RoI (``pool``, the subclass's); PartA2's
+head (``partA2_head.py``) pools the RoI-aware grids. ``PVRCNNHead`` pools
 the keypoint features weighted by their segmentation scores (no stop on the
 gradient: the RCNN loss trains the point head too) by multi-scale grouping
 at two radii. ``pvrcnn_head_loss`` is BCE classification, smooth-l1
@@ -31,19 +33,18 @@ def pvrcnn_head_loss(model_cfg, ret):
     return rcnn_loss, tb
 
 
-class RoIGridHead(nn.Module):
-    """Proposals, targets, grid points, shared FC and heads; a subclass
-    gives ``pool(batch_dict, grid)``: grid (B, R * G, 3) -> (B, R * G,
-    ``pooled_channels``). Every layer computes in f32, as flax does with
-    f32 parameters and no dtype."""
+class RoIFCHead(nn.Module):
+    """Proposals, targets, shared FC layers and the class and box heads of
+    the two-stage heads; a subclass gives ``roi_features(batch_dict)``: the
+    (B * R, ``in_features``) features of ``batch_dict['rois']``. Every layer
+    computes in f32, as flax does with f32 parameters and no dtype."""
 
-    def __init__(self, model_cfg, num_class, pooled_channels):
+    def __init__(self, model_cfg, num_class, in_features):
         super().__init__()
         self.model_cfg = model_cfg
         self.box_coder = getattr(box_coder_utils, model_cfg.TARGET_CONFIG.BOX_CODER)()
-        self.grid_size = int(model_cfg.ROI_GRID_POOL.GRID_SIZE)
         self.dropout = Dropout(float(model_cfg.DP_RATIO))
-        ch = self.grid_size ** 3 * int(pooled_channels)
+        ch = int(in_features)
         self.n_shared = len(model_cfg.SHARED_FC)
         for k, out in enumerate(model_cfg.SHARED_FC):
             setattr(self, f'shared_fc{k}', Dense(ch, int(out), False))
@@ -84,13 +85,7 @@ class RoIGridHead(nn.Module):
 
         batch_rois = batch_dict['rois']
         b, r = batch_rois.shape[0], batch_rois.shape[1]
-        rois_flat = batch_rois.reshape(b * r, -1)
-        local_grid = _dense_grid_points(rois_flat, self.grid_size)
-        global_grid = common_utils.rotate_points_along_z(
-            local_grid, rois_flat[:, 6]) + rois_flat[:, None, 0:3]
-        pooled = self.pool(batch_dict, global_grid.reshape(b, r * local_grid.shape[1], 3))
-
-        x = pooled.reshape(b * r, -1)
+        x = self.roi_features(batch_dict)
         gen = gens.get('dropout')
         for k in range(self.n_shared):
             x = torch.relu(getattr(self, f'shared_bn{k}')(getattr(self, f'shared_fc{k}')(x)))
@@ -109,6 +104,27 @@ class RoIGridHead(nn.Module):
         batch_dict['has_class_labels'] = True
         batch_dict['cls_preds_normalized'] = False
         return batch_dict
+
+
+class RoIGridHead(RoIFCHead):
+    """GRID_SIZE^3 grid points in each RoI, features pooled at them by the
+    subclass's ``pool(batch_dict, grid)``: grid (B, R * G, 3) -> (B, R * G,
+    ``pooled_channels``)."""
+
+    def __init__(self, model_cfg, num_class, pooled_channels):
+        grid_size = int(model_cfg.ROI_GRID_POOL.GRID_SIZE)
+        super().__init__(model_cfg, num_class, grid_size ** 3 * int(pooled_channels))
+        self.grid_size = grid_size
+
+    def roi_features(self, batch_dict):
+        batch_rois = batch_dict['rois']
+        b, r = batch_rois.shape[0], batch_rois.shape[1]
+        rois_flat = batch_rois.reshape(b * r, -1)
+        local_grid = _dense_grid_points(rois_flat, self.grid_size)
+        global_grid = common_utils.rotate_points_along_z(
+            local_grid, rois_flat[:, 6]) + rois_flat[:, None, 0:3]
+        pooled = self.pool(batch_dict, global_grid.reshape(b, r * local_grid.shape[1], 3))
+        return pooled.reshape(b * r, -1)
 
 
 class PVRCNNHead(RoIGridHead):

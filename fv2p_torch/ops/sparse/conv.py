@@ -19,7 +19,10 @@ the output row that i feeds (the zero row N_out where none),
 
 two gathers and two matmuls, no scatter-add. A submanifold layer's inverse
 table is its forward table with the taps mirrored; a strided layer's comes
-from the host rulebook (``down_inv_*``).
+from the host rulebook (``down_inv_*``) or the device builder. The inverse
+conv of a strided layer (UNetV2's decoder) runs that layer's two tables
+swapped. ``sparse_maxpool`` and ``sparse_group`` gather through a table
+without a matmul.
 """
 import math
 
@@ -120,6 +123,17 @@ class SparseConv3d(_SparseConvBase):
         return self._apply_conv(in_st.features, nbr, out_st, inv)
 
 
+class SparseInverseConv3d(_SparseConvBase):
+    """Inverse (transposed) sparse conv of a strided layer: from that
+    layer's output level back onto its source level's rows. It is the
+    strided conv with the two tables swapped: the strided layer's inverse
+    table (N_src, K) gathers, its forward table (N_down, K) is the backward's
+    inverse table; each tap keeps its weight index."""
+
+    def forward(self, down_st, out_st, inv_table, fwd_table):
+        return self._apply_conv(down_st.features, inv_table, out_st, fwd_table)
+
+
 class MaskedBatchNorm(nn.Module):
     """BatchNorm1d over voxel rows; invalid rows stay zero. In training the
     statistics are those of the valid rows, mean then variance in two
@@ -152,7 +166,8 @@ class SparseConvBNReLU(nn.Module):
     def __init__(self, cin, cout, kernel_size=3, conv_type='subm',
                  compute_dtype=None):
         super().__init__()
-        cls = {'subm': SubMConv3d, 'spconv': SparseConv3d}[conv_type]
+        cls = {'subm': SubMConv3d, 'spconv': SparseConv3d,
+               'inverseconv': SparseInverseConv3d}[conv_type]
         self.conv = cls(cin, cout, kernel_size, compute_dtype=compute_dtype)
         self.bn = MaskedBatchNorm(cout)
 
@@ -182,3 +197,19 @@ class SparseBasicBlock(nn.Module):
         out = self.conv2(out, nbr)
         f = torch.relu(self.bn2(out.features, mask) + identity)
         return out.replace(features=f.masked_fill(~mask[:, None], 0.0))
+
+
+def sparse_maxpool(features, nbr):
+    """Sparse max pooling over a table (JAX ``sparse_maxpool``): output row
+    o is the max over the taps of the rows ``nbr[o]`` names; a row no input
+    reaches is 0. features (N_in_cap, C), nbr (N_out, K) -> (N_out, C)."""
+    neg = features.new_full((1, features.shape[1]), float('-inf'))
+    out = torch.cat([features, neg], dim=0)[nbr].amax(dim=1)
+    return out.masked_fill(torch.isneginf(out), 0.0)
+
+
+def sparse_group(features, nbr):
+    """The neighbourhood of every output row without a conv (JAX
+    ``sparse_group``): (N_out, K, C), zeros at missing taps (JAX's is the
+    transpose, (K, N_out, C), as its tables are)."""
+    return _pad_row(features)[nbr]

@@ -74,14 +74,16 @@ def select_mode_caps(caps_override, training):
 
 def backbone_spec(backbone_name, grid_size, voxel_capacity,
                   caps_override=None, strict=True):
-    """Static conv topology of a backbone (sparse z = nz + 1). The level
+    """Static conv topology of a backbone (sparse z = nz + 1); the three
+    sparse backbones share one (UNetV2's decoder runs the strided layers'
+    tables backwards). The level
     capacities are ``level_capacities(voxel_capacity)``, with the entries of
     ``caps_override`` (level -> rows, one mode's: ``select_mode_caps``) in
     their place, but x_conv1's: that level holds the voxels themselves, so
     its rows are the voxel capacity. (waymo_fv2p_e30.yaml sets x_conv1 to
     90000 for both modes and trains at 80000 voxels: tables of 90000 rows
     over 80000 inputs, on which JAX's backbone fails with a shape error.)"""
-    if backbone_name not in ('VoxelResBackBone8x', 'VoxelBackBone8x'):
+    if backbone_name not in ('VoxelResBackBone8x', 'VoxelBackBone8x', 'UNetV2'):
         raise NotImplementedError(backbone_name)
     nx, ny, nz = grid_size
     caps = level_capacities(voxel_capacity)

@@ -29,12 +29,14 @@ import datetime
 import os
 import pickle
 import socket
+import time
 from pathlib import Path
 
 import torch
 import torch.distributed as dist
 
 TIMEOUT = datetime.timedelta(minutes=30)
+WALL = None                     # seconds a launch may take; None: no limit
 _TORCHRUN_ENV = ('RANK', 'WORLD_SIZE', 'MASTER_ADDR', 'MASTER_PORT')
 
 
@@ -194,16 +196,22 @@ def interleave(parts):
 # ------------------------------------------------------- starting ranks
 
 def free_port():
+    """A port no socket holds now, for a launcher alone on its host (torchrun's
+    rendezvous, say). It is free only until someone binds it: launchers that
+    may run side by side use ``launch``, whose store holds its port."""
     with socket.socket() as s:
         s.bind(('127.0.0.1', 0))
         return s.getsockname()[1]
 
 
-def _rank_entry(local, world, port, device_type, fn, args, result_path, timeout):
+def _rank_entry(local, world, port, device_type, fn, args, result_path, timeout, threads):
+    # the launching process hosts the rendezvous store (torchelastic's agent
+    # store): every rank connects to it as a client
     os.environ.update(RANK=str(local), LOCAL_RANK=str(local), WORLD_SIZE=str(world),
-                      MASTER_ADDR='127.0.0.1', MASTER_PORT=str(port))
-    if device_type == 'cpu':            # the ranks share the host's cores
-        torch.set_num_threads(max(1, torch.get_num_threads() // world))
+                      MASTER_ADDR='127.0.0.1', MASTER_PORT=str(port),
+                      TORCHELASTIC_USE_AGENT_STORE='True')
+    if device_type == 'cpu':            # the ranks share the launcher's threads
+        torch.set_num_threads(threads)
     init_process_group(device_type, timeout)
     try:
         result = fn(*args)
@@ -215,19 +223,45 @@ def _rank_entry(local, world, port, device_type, fn, args, result_path, timeout)
         dist.destroy_process_group()
 
 
-def launch(fn, world, args, device_type, result_path=None, timeout=TIMEOUT):
+def launch(fn, world, args, device_type, result_path=None):
     """Run ``fn(*args)`` in ``world`` spawned processes joined in one process
     group on this host (rank r on ``cuda:r`` with ``device_type`` 'cuda', or
     on the CPU over gloo with 'cpu') and wait for all of them. A rank that
     raises ends the others and the launch raises. With ``result_path`` rank
-    0's return value is pickled there and returned."""
+    0's return value is pickled there and returned. Ranks on the CPU split
+    this process's intra-op threads between them.
+
+    The module's ``TIMEOUT`` bounds the rendezvous and each collective, and
+    its ``WALL`` (seconds, None for no limit) the whole wait: past it the
+    ranks are killed and the launch raises TimeoutError. Both are read at
+    each call, so a caller that needs shorter limits sets them. The
+    rendezvous store listens on a port the operating system gives this
+    process, held until the ranks end, so two launches on one host never
+    race for a port."""
     import torch.multiprocessing as mp
     if device_type == 'cuda' and torch.cuda.device_count() < world:
         raise RuntimeError(f'{world} ranks on the card need {world} CUDA cards; this '
                            f'machine has {torch.cuda.device_count()}')
-    mp.start_processes(_rank_entry, nprocs=world, start_method='spawn',
-                       args=(world, free_port(), device_type, fn, tuple(args),
-                             None if result_path is None else str(result_path), timeout))
+    timeout, wall = TIMEOUT, WALL
+    store = dist.TCPStore('127.0.0.1', 0, world, is_master=True, timeout=timeout,
+                          wait_for_workers=False)
+    ctx = mp.start_processes(_rank_entry, nprocs=world, start_method='spawn', join=False,
+                             args=(world, store.port, device_type, fn, tuple(args),
+                                   None if result_path is None else str(result_path),
+                                   timeout, max(1, torch.get_num_threads() // world)))
+    deadline = None if wall is None else time.monotonic() + wall
+    try:
+        while not ctx.join(None if deadline is None
+                           else max(0.0, deadline - time.monotonic())):
+            if deadline is not None and time.monotonic() >= deadline:
+                raise TimeoutError(f'{world} ranks of {getattr(fn, "__name__", fn)} '
+                                   f'still running after {wall} s')
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+            p.join()
+        del store
     if result_path is None:
         return None
     with open(result_path, 'rb') as f:

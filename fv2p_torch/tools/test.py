@@ -27,7 +27,7 @@ from .. import parallel
 from ..config import REPO_ROOT, EasyDict, cfg_from_list, cfg_from_yaml_file
 from ..datasets import build_dataloader, build_dataset, dataset_meta_from_cfg
 from ..models import build_network
-from ..models.backbones_3d.spconv_backbone import reads_host_tables
+from ..models.backbones_3d import reads_host_tables
 from ..utils import common_utils
 from ..weights import init_random_
 from .eval_utils import eval_one_epoch

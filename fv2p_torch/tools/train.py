@@ -1,8 +1,13 @@
 """Training entry point (counterpart of ``tools/train.py``): the epoch loop
-over ``train_utils.train_state.TrainStep`` and ``adam_onecycle``, a
-checkpoint every ``--ckpt_save_interval`` epochs with rotation to
-``--max_ckpt_save_num``, auto-resume from the newest checkpoint, and
-``--eval_after_train``.
+over ``train_utils.train_state.TrainStep`` and the yaml's optimizer
+(``adam_onecycle``, ``adam`` or ``sgd``), a checkpoint every
+``--ckpt_save_interval`` epochs with rotation to ``--max_ckpt_save_num``,
+auto-resume from the newest checkpoint, ``--eval_after_train``, and
+``--profile_steps START,END``: a ``torch.profiler`` trace (host and, on the
+card, CUDA activity) of the global steps START .. END - 1 (counted from 0),
+as JAX's runner traces them, written by each rank to
+``<output_dir>/profile/rank<r>_steps_<START>_<END>.json`` (a Chrome trace:
+open it in Perfetto or ``chrome://tracing``).
 
     python -m fv2p_torch.tools.train --cfg_file tools/cfgs/kitti_models/FV2P/fv2p.yaml
     torchrun --nproc_per_node N -m fv2p_torch.tools.train --dist --cfg_file ...
@@ -50,8 +55,7 @@ LOG_INTERVAL = 50                 # steps between loss lines and overflow checks
 def parse_config(argv=None):
     parser = argparse.ArgumentParser(
         description=__doc__.split('\n\n')[0],
-        epilog='--max_rss_gb (a workaround for a remote-TPU client) has no '
-        'counterpart; --profile_steps (a torch.profiler trace) is not ported yet.')
+        epilog='--max_rss_gb (a workaround for a remote-TPU client) has no counterpart.')
     test_runner.add_common_args(parser)
     parser.add_argument('--epochs', type=int, default=None)
     parser.add_argument('--max_ckpt_save_num', type=int, default=30)
@@ -62,8 +66,61 @@ def parse_config(argv=None):
     parser.add_argument('--num_epochs_to_eval', type=int, default=10)
     parser.add_argument('--fix_random_seed', action='store_true', default=False,
                         help=f'seed python, numpy, torch and the dataset with {FIXED_SEED}')
+    parser.add_argument('--profile_steps', type=str, default=None,
+                        help='"START,END": a torch.profiler trace of the global steps '
+                             'START..END-1 into <output_dir>/profile')
     args = parser.parse_args(argv)
+    if args.profile_steps is not None:
+        args.profile_steps = parse_profile_steps(args.profile_steps)
     return args, test_runner.load_config(args)
+
+
+def parse_profile_steps(text):
+    """'START,END' -> (START, END), 0 <= START < END."""
+    try:
+        start, end = (int(x) for x in text.split(','))
+    except ValueError:
+        raise ValueError(f'--profile_steps {text!r}: expected START,END') from None
+    if not 0 <= start < end:
+        raise ValueError(f'--profile_steps {text!r}: expected 0 <= START < END')
+    return start, end
+
+
+class StepProfiler:
+    """A ``torch.profiler`` trace of the global steps [start, end): call
+    ``before(step)`` and ``after(step)`` around each step, ``close()`` at the
+    end (it writes a trace cut short by the run's end too)."""
+
+    def __init__(self, steps, output_dir, device, rank):
+        self.start, self.end = steps
+        self.path = output_dir / 'profile' / f'rank{rank}_steps_{self.start}_{self.end}.json'
+        self.device = device
+        self.prof = None
+        self.written = False
+
+    def before(self, step):
+        if step == self.start:
+            from torch.profiler import ProfilerActivity, profile
+            acts = [ProfilerActivity.CPU]
+            if self.device.type == 'cuda':
+                acts.append(ProfilerActivity.CUDA)
+            self.prof = profile(activities=acts)
+            self.prof.__enter__()
+
+    def after(self, step):
+        if self.prof is not None and step + 1 == self.end:
+            self.close()
+
+    def close(self):
+        if self.prof is None:
+            return
+        if self.device.type == 'cuda':
+            torch.cuda.synchronize(self.device)
+        self.prof.__exit__(None, None, None)
+        self.path.parent.mkdir(parents=True, exist_ok=True)
+        self.prof.export_chrome_trace(str(self.path))
+        self.prof = None
+        self.written = True
 
 
 def check_device_overflow(trainer, epoch, it):
@@ -182,12 +239,19 @@ def _train(args, cfg, on_resume):
     record = {'trainer': trainer, 'resumed_from': resumed_from, 'start_epoch': start_epoch,
               'steps': [], 'step_s': [], 'loader_wait_s': [], 'checkpoints': []}
     metrics_file = open(output_dir / 'metrics.jsonl', 'a') if rank == 0 else None
+    profiler = None if args.profile_steps is None else \
+        StepProfiler(args.profile_steps, output_dir, device, rank)
     try:
         for epoch in range(start_epoch, epochs):
             terms = []
             t_prev = time.perf_counter()
             for _, batch, wait in prefetch(loader, lambda b: batch_to_torch(b, device)):
+                step = epoch * steps_per_epoch + len(terms)
+                if profiler is not None:
+                    profiler.before(step)
                 terms.append(trainer.step(batch))
+                if profiler is not None:
+                    profiler.after(step)
                 now = time.perf_counter()
                 record['step_s'].append(now - t_prev)
                 record['loader_wait_s'].append(wait)
@@ -222,6 +286,11 @@ def _train(args, cfg, on_resume):
     finally:
         if metrics_file is not None:
             metrics_file.close()
+        if profiler is not None:
+            profiler.close()
+            if profiler.written:
+                record['profile'] = profiler.path
+                logger.info(f'profiler trace written to {profiler.path}')
     logger.info('**********************End training**********************')
 
     if args.eval_after_train and rank == 0:

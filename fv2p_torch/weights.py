@@ -7,7 +7,8 @@ one torch submodule (``a/b/c`` -> ``a.b.c``):
 
 * ``Dense`` kernel (I, O) -> ``Linear`` weight (O, I); a 1x1 ``Conv``
   kernel (1, 1, I, O) also maps onto a ``Dense``;
-* ``Conv`` kernel (kH, kW, I, O) -> (O, I, kH, kW);
+* ``Conv`` kernel (kH, kW, I, O) -> (O, I, kH, kW), and a 3-D one
+  (kX, kY, kZ, I, O) -> (O, I, kX, kY, kZ);
 * ``ConvTranspose`` kernel (kH, kW, I, O) -> spatially flipped, (I, O, kH, kW);
 * sparse-conv kernels and the deformable conv's own kernel, both
   (K, Cin, Cout), stay as they are;
@@ -35,7 +36,7 @@ import math
 import numpy as np
 import torch
 
-from .models.layers import BatchNorm, ConvTranspose2d, Dense
+from .models.layers import BatchNorm, Conv3d, ConvTranspose2d, Dense
 from .ops.dcn import MdeformConvBlock
 from .ops.sparse.conv import MaskedBatchNorm, _SparseConvBase
 
@@ -66,6 +67,8 @@ def _converted(module, leaf, arr):
         return 'weight', arr[::-1, ::-1].transpose(2, 3, 0, 1)
     if isinstance(module, torch.nn.Conv2d):
         return 'weight', arr.transpose(3, 2, 0, 1)
+    if isinstance(module, Conv3d):
+        return 'weight', arr.transpose(4, 3, 0, 1, 2)
     raise TypeError(f'no flax mapping for {type(module).__name__}')
 
 
@@ -116,6 +119,8 @@ def _flax_leaves(module, tensors):
         kernel = arr('weight').transpose(2, 3, 0, 1)[::-1, ::-1]
     elif isinstance(module, torch.nn.Conv2d):
         kernel = arr('weight').transpose(2, 3, 1, 0)
+    elif isinstance(module, Conv3d):
+        kernel = arr('weight').transpose(2, 3, 4, 1, 0)
     else:
         return []
     out = [('params', 'kernel', np.ascontiguousarray(kernel))]
@@ -163,7 +168,7 @@ def init_random_(model, seed=0):
         elif isinstance(module, ConvTranspose2d):
             w = module.weight                       # (I, O, kH, kW)
             fan_in = w.shape[0] * w.shape[2] * w.shape[3]
-        elif isinstance(module, (Dense, torch.nn.Conv2d)):
+        elif isinstance(module, (Dense, torch.nn.Conv2d, Conv3d)):
             w = module.weight                       # (O, I, ...)
             fan_in = math.prod(w.shape[1:])
         else:

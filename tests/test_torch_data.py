@@ -39,6 +39,7 @@ from fv2p_torch.ops.sparse import host_rulebook
 from fv2p_torch.tools.eval_utils import make_recall_fn
 from fv2p_torch.utils import native
 from fv2p_torch.utils.synthetic import scan_coords
+from tests.test_torch_model import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO / 'tools'))

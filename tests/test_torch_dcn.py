@@ -19,6 +19,7 @@ from tests.test_torch_model import assert_close, t
 
 from fv2p_torch.ops import dcn
 from fv2p_torch.weights import load_flax_variables
+from tests.test_torch_model import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 B, H, W = 2, 7, 9
 

@@ -29,6 +29,7 @@ the one-device train tests, exact zeros included: JAX's side of those is
 not known) each side is held to a move of at most lr instead.
 """
 import copy
+import datetime
 import pickle
 import sys
 from pathlib import Path
@@ -47,7 +48,7 @@ from fv2p_tpu.ops import pointops as jax_pointops
 from fv2p_tpu.train_utils import optimization as jax_optim
 from fv2p_tpu.train_utils import train_state as jax_train_state
 from tests import ddp_worker
-from tests import test_torch_pointrcnn as prcnn
+from tests import test_torch_pointrcnn_train as prcnn
 from tests.jitu import japply, jinit
 from tests.test_fv2p_model import TINY_FV2P_CFG
 from tests.test_mgaf_model import TINY_DATA_CFG, TINY_MODEL_CFG
@@ -60,6 +61,7 @@ from tests.test_torch_train import (SAMPLING_KEY, _kitti_optim_cfg, flat_paths,
 
 from fv2p_torch import parallel
 from fv2p_torch.parallel import dryrun
+from tests.test_torch_model import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO / 'tools'))
@@ -67,6 +69,18 @@ from eval_utils import eval_utils as jax_eval_utils  # noqa: E402
 
 WORLD = 2
 TOTAL = 100
+# the spawned ranks' limits: a stuck gloo rendezvous or collective fails its
+# test within LAUNCH_TIMEOUT, a launch that hangs otherwise within LAUNCH_WALL
+LAUNCH_TIMEOUT = datetime.timedelta(seconds=120)
+LAUNCH_WALL = 600
+
+
+@pytest.fixture(scope='module', autouse=True)
+def launch_limits():
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(parallel, 'TIMEOUT', LAUNCH_TIMEOUT)
+        mp.setattr(parallel, 'WALL', LAUNCH_WALL)
+        yield
 
 
 def close(actual, ref, what=''):
@@ -249,30 +263,6 @@ def test_dp_step_updated_params_match_jax(dp_run):
 def test_dp_step_leaves_the_ranks_replicated(dp_run):
     """Both ranks end the step with the same parameters and statistics."""
     a, b = (flat_paths(r['variables']) for r in dp_run['ranks'])
-    assert sorted(a) == sorted(b)
-    for k in a:
-        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
-
-
-@pytest.mark.parametrize('name', ['mgaf', 'pointrcnn'])
-def test_dp_two_steps_leave_the_ranks_replicated(name, tmp_path):
-    """Two data-parallel steps over two ranks (DDP raises at a step's
-    forward when a parameter got no reduced gradient in the step before):
-    every loss term of both steps finite and the same on both ranks (the
-    ranks' mean), the loss moved by the first update, and both ranks end
-    with the same parameters and statistics. PointRCNN's RCNN regression
-    has foreground RoIs in both steps."""
-    s = {'mgaf': mgaf_setup, 'pointrcnn': pointrcnn_setup}[name]()
-    spec = write_spec(s, tmp_path / 'spec.pkl', 2, steps=2)
-    ranks = parallel.launch(ddp_worker.dp_step, WORLD, (str(spec),), 'cpu',
-                            result_path=tmp_path / 'result.pkl')
-    assert ranks[0]['steps'] == ranks[1]['steps'] and len(ranks[0]['steps']) == 2
-    for terms in ranks[0]['steps']:
-        assert all(np.isfinite(v) for v in terms.values()), terms
-        if name == 'pointrcnn':
-            assert terms['rcnn_loss_reg'] > 0, terms
-    assert ranks[0]['steps'][1]['loss'] != ranks[0]['steps'][0]['loss']
-    a, b = (flat_paths(r['variables']) for r in ranks)
     assert sorted(a) == sorted(b)
     for k in a:
         np.testing.assert_array_equal(a[k], b[k], err_msg=k)

@@ -15,7 +15,7 @@ from pathlib import Path
 import numpy as np
 
 from tests import ddp_worker
-from tests.test_torch_ddp import WORLD, fv2p_setup, write_spec
+from tests.test_torch_ddp import LAUNCH_TIMEOUT, LAUNCH_WALL, WORLD, fv2p_setup, write_spec
 from tests.test_torch_runner import N_SCANS, _eval_keys, _runner_cfg_file, tiny_cfg_dict
 
 import pytest
@@ -23,9 +23,20 @@ import pytest
 from fv2p_torch import parallel
 from fv2p_torch.parallel import dryrun
 from fv2p_torch.tools import test as test_runner, train as train_runner
+from tests.test_torch_model import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 REPO = Path(__file__).resolve().parent.parent
 KITTI = REPO / 'data' / 'kitti'
+
+
+@pytest.fixture(scope='module', autouse=True)
+def launch_limits():
+    """Every launch of this file's ranks, the runners' and the dry run's
+    included, under the short limits of ``tests/test_torch_ddp.py``."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(parallel, 'TIMEOUT', LAUNCH_TIMEOUT)
+        mp.setattr(parallel, 'WALL', LAUNCH_WALL)
+        yield
 
 
 def test_world_size_one_ddp_step_equals_train_step(tmp_path):

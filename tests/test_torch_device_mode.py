@@ -61,6 +61,7 @@ from fv2p_torch.ops import pointops
 from fv2p_torch.train_utils.train_state import TrainStep
 from fv2p_torch.utils.synthetic import batch_to_torch
 from fv2p_torch.weights import flax_variables, load_flax_variables
+from tests.test_torch_model import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 LEVELS = ('x_conv1', 'x_conv2', 'x_conv3', 'x_conv4')
 TRAIN_SEED = 1

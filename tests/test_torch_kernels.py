@@ -41,6 +41,7 @@ from fv2p_torch.ops.cuda.sa_group import sa_group_pool_plain
 from fv2p_torch.ops.cuda.three_nn import three_nn_cuda, three_nn_plain
 from fv2p_torch.utils import iou3d
 from fv2p_torch.weights import load_flax_variables
+from tests.test_torch_model import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 RADII = (0.8, 1.6)
 NSAMPLES = (16, 32)

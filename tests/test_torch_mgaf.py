@@ -44,6 +44,7 @@ import fv2p_torch.models as torch_models
 from fv2p_torch.utils import center_utils
 from fv2p_torch.utils.synthetic import batch_to_torch
 from fv2p_torch.weights import load_flax_variables
+from tests.test_torch_model import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 VARIANTS = {'jax_init': ['Car'], 'hm_bias_0': ['Car'],
             'three_classes': ['Car', 'Pedestrian', 'Cyclist']}

@@ -61,6 +61,7 @@ from fv2p_torch.train_utils.train_state import TrainStep
 from fv2p_torch.utils import box_utils, center_utils, loss_utils
 from fv2p_torch.utils.synthetic import batch_to_torch, synthetic_batch_np
 from fv2p_torch.weights import flax_variables, load_flax_variables
+from tests.test_torch_model import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 REPO = Path(__file__).resolve().parent.parent
 MGAF_YAML = REPO / 'tools/cfgs/kitti_models/MGAF-3DSSD/mgaf-3dssd.yaml'

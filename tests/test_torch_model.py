@@ -18,6 +18,7 @@ outputs use rtol 1e-4 with atol 1e-4 scaled down to the output's own
 magnitude where that is below 1 (``assert_close``).
 """
 import copy
+import os
 from pathlib import Path
 
 import jax
@@ -48,6 +49,23 @@ from fv2p_torch.weights import load_flax_variables
 REPO = Path(__file__).resolve().parent.parent
 TOL = 1e-4
 BACKBONE = 'VoxelResBackBone8x'
+
+
+@pytest.fixture(scope='module', autouse=True)
+def one_torch_thread():
+    """Under pytest-xdist, torch runs each of the port's test modules on one
+    intra-op thread (every file of the port's tests takes this fixture).
+    PyTorch's default is every core: with six workers' thread pools on eight
+    cores, a test of many small operations (the 2100-box NMS chain of
+    tests/test_torch_kernels.py, ~21 s alone) took 399 s. The results do not
+    depend on it: each parity test holds at any thread count."""
+    if int(os.environ.get('PYTEST_XDIST_WORKER_COUNT', '1')) <= 1:
+        yield
+        return
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def assert_close(actual, ref, tol=TOL):

@@ -10,8 +10,8 @@ three tiny models carried from flax into the port: the CBGS layout of
 PointPillar multihead whose BEV backbone downsamples its first level
 (``cbgs_pp_multihead.yaml``'s UPSAMPLE_STRIDES [0.5, 1, 2]). For each: the
 head's predictions and anchors row for row, the decode, the multi-class
-NMS; then one train step's targets, loss terms, gradients and the
-parameters after one ``adam_onecycle`` update. The class convs start at
+NMS (one train step of each: ``tests/test_torch_multihead_train.py``).
+The class convs start at
 bias 0 here (JAX's -log 99 puts every anchor under SCORE_THRESH). Last,
 the four multihead yamls build at full width with the JAX model's
 parameter counts.
@@ -29,7 +29,6 @@ from pathlib import Path
 import jax
 import jax.numpy as jnp
 import numpy as np
-import optax
 import pytest
 import torch
 
@@ -38,15 +37,12 @@ from fv2p_tpu.config import StaticConfig
 from fv2p_tpu.models import build_network as jax_build_network
 from fv2p_tpu.models.backbones_2d.base_bev_backbone import BaseBEVBackbone as JaxBEV
 from fv2p_tpu.models.dense_heads import anchor_head_multi as jax_multi
-from fv2p_tpu.models.detectors import detector3d_template as jax_det
-from fv2p_tpu.train_utils import optimization as jax_optim
 from fv2p_tpu.utils import box_coder_utils as jax_coder
-from tests.jitu import japply, jgrad, jinit
+from tests.jitu import japply, jinit
 from tests.test_model_zoo import PILLAR_CFG
 from tests.test_multihead import MULTIHEAD_CFG
 from tests.test_torch_model import assert_close, assert_equal, perturb_bn
 from tests.test_torch_package import _jax_param_count
-from tests.test_torch_train import _zero_by_construction, close_by_max, flat_paths
 from tests.test_torch_zoo import compact_batch
 
 import fv2p_torch.models as torch_models
@@ -54,10 +50,10 @@ from fv2p_torch.config import EasyDict, cfg_from_yaml_file
 from fv2p_torch.datasets import dataset_meta_from_cfg
 from fv2p_torch.models.backbones_2d.base_bev_backbone import BaseBEVBackbone
 from fv2p_torch.models.dense_heads import anchor_head_multi
-from fv2p_torch.train_utils.train_state import TrainStep
 from fv2p_torch.utils import box_coder_utils
 from fv2p_torch.utils.synthetic import batch_to_torch
-from fv2p_torch.weights import flax_variables, init_random_, load_flax_variables
+from fv2p_torch.weights import init_random_, load_flax_variables
+from tests.test_torch_model import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 REPO = Path(__file__).resolve().parent.parent
 CLASSES = ['car', 'truck', 'pedestrian']
@@ -270,97 +266,6 @@ def test_multi_classes_nms_matches_jax(eval_run):
     assert valid.sum() > 0
     assert len(set(np.asarray(out['pred_labels'])[valid].tolist())) > 1
 
-
-@pytest.fixture(scope='module')
-def train_run(case):
-    """One train step in both packages from the same variables: the loss
-    and gradients, then one adam_onecycle update. With a pillar encoder the
-    reference gradients are JAX's eager ones (``tests/test_torch_zoo.py``
-    says why: ties of the PFN max among exact zeros move under jit)."""
-    name, cfg, batch_np, jmodel, jb, vnp, meta = case
-    tmodel = _torch_model(cfg, meta, vnp)
-
-    def loss_fn(params):
-        o, _ = jmodel.apply({'params': params, 'batch_stats': vnp['batch_stats']},
-                            dict(jb), train=True, mutable=['batch_stats'])
-        loss, tb = jax_det.compute_training_loss(jmodel, o)
-        return loss, (tb, o['anchor_head_ret']['box_cls_labels'],
-                      o['anchor_head_ret']['box_reg_targets'])
-
-    params = jax.tree_util.tree_map(jnp.asarray, vnp['params'])
-    if name.startswith('pillar'):
-        (loss, (tb, labels, targets)), grads = jax.value_and_grad(
-            loss_fn, has_aux=True)(params)
-    else:
-        (loss, (tb, labels, targets)), grads = jgrad(loss_fn, params)
-    tx = jax_optim.build_optimizer(StaticConfig(OPTIM), TOTAL_STEPS)
-    upd, _ = tx.update(grads, tx.init(params), params)
-    new_params = optax.apply_updates(params, upd)
-
-    step = TrainStep(tmodel, OPTIM, TOTAL_STEPS)
-    tloss, tterms, tout = step.forward_loss(batch_to_torch(batch_np, 'cpu'))
-    step.backward(tloss)
-    tgrads = flat_paths(flax_variables(tmodel, grads=True)['params'])
-    step.update()
-    lr0 = float(jax_optim.one_cycle_lr_schedule(
-        float(OPTIM.LR), float(OPTIM.DIV_FACTOR), float(OPTIM.PCT_START), TOTAL_STEPS)(0))
-    return {'tb': tb, 'loss': loss, 'labels': labels, 'targets': targets,
-            'grads': flat_paths(grads), 'params': flat_paths(new_params),
-            'params0': flat_paths(vnp['params']), 'lr0': lr0,
-            'ttb': tterms, 'tloss': tloss, 'tout': tout, 'tgrads': tgrads,
-            'tparams': flat_paths(flax_variables(tmodel)['params'])}
-
-
-def test_train_targets_and_losses_match_jax(train_run):
-    s = train_run
-    tret = s['tout']['anchor_head_ret']
-    assert_equal(tret['box_cls_labels'], s['labels'])
-    assert_close(tret['box_reg_targets'], s['targets'])
-    labels = np.asarray(s['labels'])
-    assert len(set(labels[labels > 0].tolist())) == 3
-    assert sorted(s['ttb']) == sorted(s['tb'])
-    for k, v in s['tb'].items():
-        np.testing.assert_allclose(float(s['ttb'][k].detach()), float(v), rtol=1e-4, err_msg=k)
-        assert float(v) > 0, k
-    np.testing.assert_allclose(float(s['tloss'].detach()), float(s['loss']), rtol=1e-4)
-
-
-def test_train_gradients_match_jax(train_run):
-    s = train_run
-    assert sorted(s['tgrads']) == sorted(s['grads'])
-    for k, ref in s['grads'].items():
-        if _zero_by_construction(k):
-            # noise below 1e-5 of the same conv's kernel gradient, both sides
-            scale = float(np.abs(s['grads'][k[:-len('bias')] + 'kernel']).max())
-            assert float(np.abs(ref).max()) <= 1e-5 * scale, k
-            assert float(np.abs(s['tgrads'][k]).max()) <= 1e-5 * scale, k
-            continue
-        close_by_max(s['tgrads'][k], ref, k)
-    nonzero = sum(float(np.abs(g).max()) > 0 for g in s['grads'].values())
-    assert nonzero > 0.9 * len(s['grads'])
-
-
-def test_train_updated_params_match_jax(train_run):
-    s = train_run
-    lr, wd = s['lr0'], float(OPTIM.WEIGHT_DECAY)
-    assert sorted(s['tparams']) == sorted(s['params'])
-    n_noise = n_all = 0
-    for k, ref in s['params'].items():
-        got, g, p0 = s['tparams'][k], np.asarray(s['grads'][k]), s['params0'][k]
-        # an exact 0 is no noise: Adam then moves a parameter by its decay alone
-        noise = (np.abs(g) <= 2 * (1e-4 * np.abs(g).max() + 1e-7)) & (g != 0)
-        if _zero_by_construction(k):
-            noise[:] = True
-        close_by_max(np.where(noise, 0.0, got), np.where(noise, 0.0, np.asarray(ref)), k)
-        for side in (got, np.asarray(ref)):
-            step = np.abs(side - p0 + lr * wd * p0)[noise]
-            assert not step.size or float(step.max()) <= lr * (1 + 1e-4), k
-        n_noise += int(noise.sum())
-        n_all += noise.size
-    assert n_noise < 0.02 * n_all, (n_noise, n_all)
-
-
-# ------------------------------------------------------------- full width
 
 MULTIHEAD_YAMLS = ('kitti_models/second_multihead.yaml',
                    'nuscenes_models/cbgs_second_multihead.yaml',

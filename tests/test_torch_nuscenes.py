@@ -34,14 +34,15 @@ from fv2p_tpu.datasets.nuscenes import nuscenes_eval_native as jax_native
 from fv2p_tpu.datasets.nuscenes.nuscenes_dataset import NuScenesDataset as JaxNuScenes
 from tests import test_nuscenes_eval_native as jax_native_cases
 from tests.test_torch_data import _assert_samples_equal
-from tests.test_torch_runner import (_runner_cfg_file, _train, cut_infos,  # noqa: F401
-                                     tiny_cfg_dict)
+from tests.test_torch_runner import _runner_cfg_file, _train, tiny_cfg_dict
+from tests.test_torch_runner_device import cut_infos  # noqa: F401 (a fixture)
 
 from fv2p_torch.config import EasyDict, cfg_from_yaml_file
 from fv2p_torch.datasets import build_dataset
 from fv2p_torch.datasets.nuscenes import nuscenes_eval_native
 from fv2p_torch.datasets.nuscenes.nuscenes_dataset import NuScenesDataset
 from fv2p_torch.tools import train
+from tests.test_torch_model import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 REPO = Path(__file__).resolve().parent.parent
 NUSC = REPO / 'data' / 'nuscenes'

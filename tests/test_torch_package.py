@@ -3,9 +3,8 @@
 strict, its sparse convolution matches the JAX one, and (on a machine with
 a CUDA card only) each kernel matches its plain version."""
 import ast
-from pathlib import Path
-
 import copy
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -29,6 +28,7 @@ from fv2p_torch.weights import (calibrate_batchnorm_, init_random_,
 from tests.test_fv2p_model import TINY_FV2P_CFG
 from tests.test_mgaf_model import TINY_DATA_CFG, TINY_MODEL_CFG
 from tests.test_torch_model import make_rulebook_batches, to_jax
+from tests.test_torch_model import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 REPO = Path(__file__).resolve().parent.parent
 FORBIDDEN = ('jax', 'jaxlib', 'flax', 'fv2p_tpu')
@@ -85,10 +85,35 @@ def test_build_network_without_device_needs_cuda(monkeypatch):
 
 
 def test_unported_detector_raises():
+    """A detector or a slot module that the port does not have raises
+    NotImplementedError naming it (every shipped yaml builds: see
+    ``test_every_yaml_names_ported_modules_only``)."""
     meta = dataset_meta_from_cfg(TINY_DATA_CFG, 'train')
-    cfg = EasyDict(dict(TINY_FV2P_CFG, NAME='PartA2Net'))
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
+    cfg = EasyDict(dict(TINY_FV2P_CFG, NAME='NoSuchNet'))
+    with pytest.raises(NotImplementedError, match='detector NoSuchNet'):
         torch_models.build_network(cfg, 1, ['Car'], meta, device='cpu')
+    cfg = EasyDict(dict(TINY_FV2P_CFG, PFE={'NAME': 'NoSuchPFE'}))
+    with pytest.raises(NotImplementedError, match='PFE NoSuchPFE'):
+        torch_models.build_network(cfg, 1, ['Car'], meta, device='cpu')
+
+
+ALL_MODEL_YAMLS = sorted(str(p.relative_to(REPO / 'tools/cfgs'))
+                         for p in (REPO / 'tools/cfgs').glob('*_models/**/*.yaml'))
+
+
+def test_every_yaml_names_ported_modules_only():
+    """Each of the yamls under tools/cfgs/*_models/ names a detector and,
+    in every slot it fills, a module the port builds; read from the yaml
+    alone, without building 30 full-width models."""
+    from fv2p_torch.models.detectors import detector3d_template as det
+    assert len(ALL_MODEL_YAMLS) == 30
+    for rel in ALL_MODEL_YAMLS:
+        cfg = EasyDict()
+        cfg_from_yaml_file(str(REPO / 'tools/cfgs' / rel), cfg)
+        assert cfg.MODEL.NAME in det.DETECTOR_REGISTRY, rel
+        for key, names in det._PORTED.items():
+            if key in cfg.MODEL:
+                assert cfg.MODEL[key].NAME in names, (rel, key, cfg.MODEL[key].NAME)
 
 
 def test_kitti_fv2p_yaml_builds_at_full_width():

@@ -8,57 +8,46 @@
 * The tiny ``POINTRCNN_CFG`` of ``tests/test_model_zoo.py``, initialised in
   flax, BatchNorm statistics perturbed, carried across by
   ``load_flax_variables``: the eval forward (point features, proposals,
-  refined boxes, detections), and one train step for the yaml's
-  ``CLS_SCORE_TYPE`` ``cls`` and for ``rcnn_iou`` (loss terms, the RCNN
-  classification labels, gradients, batch statistics, updated parameters)
-  with JAX's RoI draws fed to the port.
+  refined boxes, detections); its train steps are in
+  ``tests/test_torch_pointrcnn_train.py``.
 * The three PointRCNN yamls build at full width with JAX's parameter
-  counts; ``PartA2_free.yaml`` still raises ``NotImplementedError``.
+  counts, and ``PartA2_free.yaml`` (PointRCNN's detector over PartA2's
+  modules) builds at full width.
 
 Tolerances as the other model tests: integers exact, floats rtol 1e-4
 (``assert_close``), gradients, statistics and parameters within
 1e-4 max|ref| + 1e-7 (``close_by_max``), in f32.
 """
-import copy
 import functools
 from pathlib import Path
 
 import jax
 import jax.numpy as jnp
 import numpy as np
-import optax
 import pytest
 import torch
 
 from fv2p_tpu.config import EasyDict as JaxEasyDict
-from fv2p_tpu.config import StaticConfig
 from fv2p_tpu.config import cfg_from_yaml_file as jax_cfg_from_yaml_file
 from fv2p_tpu.datasets import dataset_meta_from_cfg as jax_meta_from_cfg
 from fv2p_tpu.models import build_network as jax_build_network
 from fv2p_tpu.models.dense_heads import point_head_box as jax_phb
-from fv2p_tpu.models.detectors import detector3d_template as jax_det
-from fv2p_tpu.models.roi_heads import iouguided_roi_head as jax_roi
-from fv2p_tpu.models.roi_heads import pointrcnn_head as jax_prcnn
 from fv2p_tpu.ops import pointops as jax_pointops
-from fv2p_tpu.train_utils import optimization as jax_optim
 from fv2p_tpu.utils import box_coder_utils as jax_coders
-from tests.jitu import japply, jgrad, jinit
+from tests.jitu import japply, jinit
 from tests.test_fv2p_model import make_fv2p_batch
 from tests.test_model_zoo import POINTRCNN_CFG
 from tests.test_torch_model import assert_close, assert_equal, perturb_bn
-from tests.test_torch_train import (SAMPLING_KEY, _kitti_optim_cfg, close_by_max,
-                                    flat_paths, jax_sampling_draws)
 
 import fv2p_torch.models as torch_models
 from fv2p_torch.config import EasyDict, cfg_from_yaml_file
 from fv2p_torch.datasets import dataset_meta_from_cfg
 from fv2p_torch.models.dense_heads.point_head_box import assign_point_box_targets
-from fv2p_torch.models.roi_heads import pointrcnn_head as torch_prcnn
 from fv2p_torch.ops import pointops
-from fv2p_torch.train_utils.train_state import TrainStep
 from fv2p_torch.utils import box_coder_utils
 from fv2p_torch.utils.synthetic import batch_to_torch
-from fv2p_torch.weights import flax_variables, load_flax_variables
+from fv2p_torch.weights import load_flax_variables
+from tests.test_torch_model import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 REPO = Path(__file__).resolve().parent.parent
 MEAN_SIZE = [[3.9, 1.6, 1.56], [0.8, 0.6, 1.73], [1.76, 0.6, 1.73]]
@@ -225,163 +214,6 @@ def test_eval_detections_match_jax():
     assert valid.sum() > 4
 
 
-# ------------------------------------------------------------- training
-
-@pytest.fixture(scope='module')
-def pinned_draws():
-    """JAX's RoI sampling on SAMPLING_KEY whatever key its head draws, and
-    the port fed the same draws."""
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(jax_prcnn, 'assign_targets',
-                   lambda key, bd, tcfg: jax_roi.assign_targets(SAMPLING_KEY, bd, tcfg))
-        mp.setattr(torch_prcnn, 'draw_roi_sampling',
-                   lambda b, r, n, gen, dev: jax_sampling_draws(SAMPLING_KEY, b, r, n))
-        yield
-
-
-def _train_cfg(score_type):
-    cfg = copy.deepcopy(POINTRCNN_CFG)
-    cfg.ROI_HEAD.TARGET_CONFIG.CLS_SCORE_TYPE = score_type
-    if score_type == 'rcnn_iou':
-        # soft labels between 0.25 and 0.7, as pointrcnn_iou.yaml sets them
-        cfg.ROI_HEAD.TARGET_CONFIG.CLS_FG_THRESH = 0.7
-        cfg.ROI_HEAD.TARGET_CONFIG.CLS_BG_THRESH = 0.25
-    return JaxEasyDict(cfg)
-
-
-def train_batch(cfg, jmodel, jb, vnp, batch_np):
-    """The batch with gt at the three proposals of each scan that hold the
-    most points (from a train forward without gt), grown by 5%, so that
-    points and sampled RoIs hold foreground."""
-    jb = dict(jb, gt_boxes=jnp.zeros((2, 10, 8), jnp.float32))
-    first, _ = japply(jmodel, jax.tree_util.tree_map(jnp.asarray, vnp), jb, train=True,
-                      mutable=['batch_stats'], rngs={'sampling': jax.random.PRNGKey(3),
-                                                     'dropout': jax.random.PRNGKey(4)})
-    rois, _, _, roi_valid = jax_roi.proposal_layer(
-        first['batch_box_preds'], first['batch_cls_preds'], cfg.ROI_HEAD.NMS_CONFIG.TRAIN)
-    gt = np.zeros((2, 10, 8), np.float32)
-    for b in range(2):
-        cand = np.asarray(rois[b])[np.asarray(roi_valid[b])]
-        inside = jax_pointops.points_in_boxes_index(
-            jnp.asarray(batch_np['points'][b, :, :3]), jnp.asarray(cand),
-            jnp.ones(len(cand), bool))
-        counts = np.bincount(np.asarray(inside)[np.asarray(inside) >= 0], minlength=len(cand))
-        gt[b, :3, :7] = cand[np.argsort(-counts, kind='stable')[:3]]
-        gt[b, :3, 3:6] *= 1.05
-        gt[b, :3, 7] = 1
-    batch_np = dict(batch_np, gt_boxes=gt)
-    return batch_np, {k: jnp.asarray(v) for k, v in batch_np.items()}
-
-
-@pytest.fixture(scope='module', params=['cls', 'rcnn_iou'])
-def train_run(request, pinned_draws):
-    """One train step of both packages from the same variables and batch:
-    value_and_grad with mutable batch statistics and the adam_onecycle
-    update in JAX, ``TrainStep`` in the port."""
-    cfg = _train_cfg(request.param)
-    batch_np, meta = tiny_batch()
-    jmodel, jb, vnp = jax_setup(cfg, batch_np, meta, seed=TRAIN_SEED)
-    batch_np, jb = train_batch(cfg, jmodel, jb, vnp, batch_np)
-    ocfg = _kitti_optim_cfg()
-    total = 100
-
-    def loss_fn(params):
-        out, mutated = jmodel.apply({'params': params, 'batch_stats': vnp['batch_stats']},
-                                    dict(jb), train=True, mutable=['batch_stats'],
-                                    rngs={'sampling': jax.random.PRNGKey(3),
-                                          'dropout': jax.random.PRNGKey(4)})
-        loss, tb = jax_det.compute_training_loss(jmodel, out)
-        return loss, (tb, mutated['batch_stats'], out['roi_head_ret']['rcnn_cls_labels'],
-                      out['point_head_ret']['point_cls_labels'])
-
-    params = jax.tree_util.tree_map(jnp.asarray, vnp['params'])
-    (loss, (tb, stats, roi_labels, point_labels)), grads = jgrad(loss_fn, params)
-    tx = jax_optim.build_optimizer(StaticConfig(ocfg), total)
-    upd, _ = tx.update(grads, tx.init(params), params)
-    new_params = optax.apply_updates(params, upd)
-
-    tmodel = torch_model(cfg, meta, vnp)
-    step = TrainStep(tmodel, ocfg, total)
-    tloss, tterms, tout = step.forward_loss(batch_to_torch(batch_np, 'cpu'))
-    step.backward(tloss)
-    tgrads = flax_variables(tmodel, grads=True)
-    tstats = flax_variables(tmodel)['batch_stats']
-    step.update()
-    lr0 = float(jax_optim.one_cycle_lr_schedule(
-        float(ocfg.LR), float(ocfg.DIV_FACTOR), float(ocfg.PCT_START), total)(0))
-    return {'score_type': request.param, 'tb': tb, 'loss': loss, 'grads': flat_paths(grads),
-            'stats': flat_paths(stats), 'params': flat_paths(new_params),
-            'params0': flat_paths(vnp['params']), 'lr0': lr0,
-            'weight_decay': float(ocfg.WEIGHT_DECAY), 'roi_labels': roi_labels,
-            'point_labels': point_labels, 'ttb': tterms, 'tloss': tloss, 'tout': tout,
-            'tgrads': flat_paths(tgrads['params']), 'tstats': flat_paths(tstats),
-            'tparams': flat_paths(flax_variables(tmodel)['params'])}
-
-
-def test_train_losses_match_jax(train_run):
-    s = train_run
-    assert_equal(s['tout']['point_head_ret']['point_cls_labels'], s['point_labels'])
-    assert sorted(s['ttb']) == sorted(s['tb'])
-    for k, v in s['tb'].items():
-        np.testing.assert_allclose(float(s['ttb'][k].detach()), float(v), rtol=1e-4, err_msg=k)
-        assert np.isfinite(float(v))
-    np.testing.assert_allclose(float(s['tloss'].detach()), float(s['loss']), rtol=1e-4)
-    for k in ('point_loss_cls', 'point_loss_box', 'rcnn_loss_cls', 'rcnn_loss_reg',
-              'rcnn_loss_corner'):
-        assert float(s['tb'][k]) > 0, k
-
-
-def test_train_rcnn_cls_labels_match_jax(train_run):
-    """``cls``: hard labels of the sampled RoIs' IoU (-1 between the
-    thresholds); ``rcnn_iou``: soft labels from the 3D IoU of the decoded
-    refinement with its class's gt, strictly between 0 and 1 for some."""
-    s = train_run
-    got = s['tout']['roi_head_ret']['rcnn_cls_labels']
-    assert_close(got, s['roi_labels'])
-    ref = np.asarray(s['roi_labels'])
-    assert (ref == 1).any() or ((ref > 0) & (ref < 1)).any()
-    if s['score_type'] == 'rcnn_iou':
-        assert ((ref > 0) & (ref < 1)).any() and ref.min() >= 0
-
-
-def test_train_gradients_match_jax(train_run):
-    s = train_run
-    assert sorted(s['tgrads']) == sorted(s['grads'])
-    for k, ref in s['grads'].items():
-        close_by_max(s['tgrads'][k], ref, k)
-    nonzero = sum(float(np.abs(g).max()) > 0 for g in s['grads'].values())
-    assert nonzero > 0.9 * len(s['grads'])
-
-
-def test_train_batch_stats_match_jax(train_run):
-    s = train_run
-    assert sorted(s['tstats']) == sorted(s['stats'])
-    for k, ref in s['stats'].items():
-        close_by_max(s['tstats'][k], ref, k)
-
-
-def test_train_updated_params_match_jax(train_run):
-    """Adam's first step moves a parameter by about lr * sign(g): where |g|
-    is within rounding noise (at most twice the gradient tolerance) and not
-    exactly 0 on both sides, each side is held to a move of at most lr;
-    everywhere else within 1e-4 * max|ref| + 1e-7."""
-    s = train_run
-    lr, wd = s['lr0'], s['weight_decay']
-    assert sorted(s['tparams']) == sorted(s['params'])
-    n_noise = n_all = 0
-    for k, ref in s['params'].items():
-        got, g, p0 = s['tparams'][k], s['grads'][k], s['params0'][k]
-        noise = (np.abs(g) <= 2 * (1e-4 * np.abs(g).max() + 1e-7)) \
-            & ((g != 0) | (s['tgrads'][k] != 0))
-        close_by_max(np.where(noise, 0.0, got), np.where(noise, 0.0, ref), k)
-        for side in (got, ref):
-            move = np.abs(side - p0 + lr * wd * p0)[noise]
-            assert not move.size or float(move.max()) <= lr * (1 + 1e-4), k
-        n_noise += int(noise.sum())
-        n_all += noise.size
-    assert n_noise < 0.02 * n_all, (n_noise, n_all)
-
-
 # ------------------------------------------------------------------ yamls
 
 def _jax_param_count(path):
@@ -410,11 +242,18 @@ def test_pointrcnn_yaml_builds_at_full_width(yaml_path):
 
 
 def test_parta2_free_yaml_still_raises():
-    """PointRCNN's detector over PartA2's UNetV2 backbone and part head:
-    those belong with PartA2 (ROADMAP.md, queue A)."""
+    """PointRCNN's detector over PartA2's UNetV2 backbone and part head
+    (ported since, with PartA2): the yaml builds at full width, the point
+    head over UNetV2's 16 channels with its box branch, the RoI head over
+    12^3 pooled cells of 128 channels. The name stays from when it raised;
+    ``tests/test_torch_parta2.py`` holds its parameter count to JAX's."""
     cfg = EasyDict()
     cfg_from_yaml_file(str(REPO / 'tools/cfgs/kitti_models/PartA2_free.yaml'), cfg)
     meta = dataset_meta_from_cfg(cfg.DATA_CONFIG, 'test')
-    with pytest.raises(NotImplementedError, match='UNetV2 is not in fv2p_torch'):
-        torch_models.build_network(cfg.MODEL, len(cfg.CLASS_NAMES), cfg.CLASS_NAMES, meta,
-                                   device='cpu')
+    model = torch_models.build_network(cfg.MODEL, len(cfg.CLASS_NAMES), cfg.CLASS_NAMES,
+                                       meta, device='cpu')
+    assert type(model).__name__ == 'PointRCNN'
+    assert type(model.backbone_3d).__name__ == 'UNetV2'
+    assert model.point_head.cls_fc0.in_features == 16 and model.point_head.coder is not None
+    assert model.roi_head.shared_fc0.in_features == 12 ** 3 * 128
+    assert not hasattr(model, 'dense_head')

@@ -30,6 +30,7 @@ from fv2p_torch.ops.sparse import host_rulebook
 from fv2p_torch.ops.sparse import rulebook as torch_rulebook
 from fv2p_torch.ops.sparse import sparse_tensor as torch_st
 from fv2p_torch.weights import init_random_
+from tests.test_torch_model import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 SHAPE = (9, 20, 24)                   # (D, H, W) of the single-layer tests
 GRID = (24, 20, 40)                   # (nx, ny, nz) of the backbone tests

@@ -67,6 +67,7 @@ from fv2p_torch.tools import make_synthetic_waymo, test as test_runner
 from fv2p_torch.utils import np_box_ops
 from fv2p_torch.utils.synthetic import batch_to_torch
 from fv2p_torch.weights import load_flax_variables
+from tests.test_torch_model import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 REPO = Path(__file__).resolve().parent.parent
 WAYMO = REPO / 'data' / 'waymo'

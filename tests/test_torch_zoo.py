@@ -46,6 +46,7 @@ from fv2p_torch.models.detectors.detector3d_template import compute_training_los
 from fv2p_torch.models.model_utils import model_nms_utils
 from fv2p_torch.utils.synthetic import batch_to_torch
 from fv2p_torch.weights import flax_variables, init_random_, load_flax_variables
+from tests.test_torch_model import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 REPO = Path(__file__).resolve().parent.parent
 CFGS = {'second': SECOND_CFG, 'pointpillar': PILLAR_CFG}
@@ -281,7 +282,7 @@ ZOO_YAMLS = ('kitti_models/second.yaml', 'kitti_models/pointpillar.yaml',
 def test_zoo_yaml_builds_at_full_width(yaml_path):
     """Each yaml builds with the JAX model's parameter count; SECOND's
     backbone builds its own rulebooks (it takes no host tables)."""
-    from fv2p_torch.models.backbones_3d.spconv_backbone import reads_host_tables
+    from fv2p_torch.models.backbones_3d import reads_host_tables
     cfg = EasyDict()
     cfg_from_yaml_file(str(REPO / 'tools/cfgs' / yaml_path), cfg)
     meta = dataset_meta_from_cfg(cfg.DATA_CONFIG, 'test')
