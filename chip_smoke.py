@@ -302,6 +302,24 @@ Then the PartA2 family, and last data parallelism (ddp):
     capacities), the same counts and comparisons as kitti_parta2, then one
     train step on 2 train samples (Vehicle and Pedestrian: the fixture has
     no Cyclist in its gt database).
+  * second_atss (after the zoo phases): kitti_models/second.yaml with
+    TARGET_ASSIGNER_CONFIG set to ATSSTargetAssigner (TOPK 9, MATCH_HEIGHT
+    False) on `second`'s train batch (batch 4, the six cars of each scan):
+    an f32 step through B1 and through its plain version (box_cls_labels,
+    regression targets and weights identical, loss terms within 1e-5
+    relative, gradients within 1e-4 max|g| + 1e-7), 2 + 5 bf16 steps (B1
+    every step: one (211200, 50) IoU a scan; positive anchors in every
+    scan), one more step's B1 calls held to the plain version and timed
+    (`second_atss_*` keys), one step with MATCH_HEIGHT True (3-D IoU).
+  * demo: fv2p_torch.tools.demo.main in this process on fv2p.yaml with
+    data/kitti's first val scan (000032) and kitti_train's checkpoint, at
+    batch 1 with the sparse tables built on the card: counted (B1-B4 each
+    launch), the same forward captured and every call held to the plain
+    version and timed (`demo_*` keys), the forward's median, an f32 forward
+    through the kernels and through the plain versions (the same
+    detections); then the default invocation (MGAF-3DSSD on the synthetic
+    scan, seeded weights), counted. Each run's host set-up seconds and
+    forward ms are recorded.
   * ddp: (a) torchrun --nproc_per_node 1 -m fv2p_torch.tools.train --dist
     (NCCL) against the same run without --dist, both under deterministic
     algorithms, loss terms by step; DDP's cost a step at one rank. (b) two
@@ -2565,6 +2583,165 @@ def _zoo_f32_step(step, batch, kernels):
     sync()
     step.model.load_state_dict(state)
     return {k: float(v.detach()) for k, v in terms.items()}, _grads(step.model), out
+
+
+ATSS_ASSIGNER = {'NAME': 'ATSSTargetAssigner', 'TOPK': 9, 'MATCH_HEIGHT': False}
+DEMO_SCAN = KITTI / 'training' / 'velodyne' / '000032.bin'   # the first val scan
+
+
+def atss_targets(out):
+    ret = out['anchor_head_ret']
+    return {'positive_anchors': int((ret['box_cls_labels'] > 0).sum()),
+            'positive_anchors_per_scan': (ret['box_cls_labels'] > 0).sum(1).tolist()}
+
+
+def second_atss_phase(kernels, rows, tbatch):
+    """kitti_models/second.yaml with TARGET_ASSIGNER_CONFIG set to
+    ATSS_ASSIGNER, on the bench-kind train batch that `second` trains on
+    (batch 4, the six cars of each scan): an f32 step through kernel B1 and
+    through its plain version from the same weights (box_cls_labels and
+    regression targets identical, loss terms within 1e-5 relative,
+    gradients within 1e-4 max|g| + 1e-7); 2 + 5 bf16 steps, B1 launched in
+    every one (one (211200, 50) IoU a scan), every loss term finite,
+    positive anchors in every scan, their times and peak memory; one more
+    step's B1 calls held to the plain version and timed beside their bound
+    (`second_atss_*` keys); one counted step with MATCH_HEIGHT (B1 through
+    boxes_iou3d's overlap entry point). Returns the record."""
+    from fv2p_torch.datasets import dataset_meta_from_cfg
+    from fv2p_torch.ops import cuda as kcuda
+    label = 'second_atss'
+    zcfg = load_cfg(SECOND_CFG)
+    zcfg.MODEL.DENSE_HEAD.TARGET_ASSIGNER_CONFIG.update(ATSS_ASSIGNER)
+    tmeta = dataset_meta_from_cfg(zcfg.DATA_CONFIG, 'train')
+    rec = {'assigner': dict(ATSS_ASSIGNER), 'batch': int(tbatch['voxels'].shape[0]),
+           'gt_boxes': int((tbatch['gt_boxes'][..., 7] > 0).sum())}
+    with full_f32():
+        step = make_train_step(zcfg, tmeta, None)
+        rec['anchors'] = int(step.model.dense_head.anchors_flat.shape[0])
+        tk, gk, ok = _zoo_f32_step(step, tbatch, None)
+        tp, gp, op = _zoo_f32_step(step, tbatch, kernels)
+    rk, rp = ok['anchor_head_ret'], op['anchor_head_ret']
+    for key in ('box_cls_labels', 'box_reg_targets', 'reg_weights'):
+        if not torch.equal(rk[key], rp[key]):
+            fail(f'{label} f32 step: {key} differs between kernel and plain version')
+    rec['f32_targets'] = atss_targets(ok)
+    rec['f32_kernel_vs_plain'] = compare_train_steps(f'{label} f32 step', tk, tp, gk, gp)
+    log(f'# {label} f32 step ({rec["anchors"]} anchors x {tbatch["gt_boxes"].shape[1]} gt rows '
+        f'a scan), kernel vs plain version: targets identical ({rec["f32_targets"]}); loss '
+        f'terms max relative difference '
+        f'{max(rec["f32_kernel_vs_plain"]["loss_rel_diff"].values()):.3g}; worst gradient '
+        f'{rec["f32_kernel_vs_plain"]["grad_worst_rel_to_max"]:.3g} of its max')
+    del step, ok, op, gk, gp
+    torch.cuda.empty_cache()
+
+    step = make_train_step(zcfg, tmeta, torch.bfloat16)
+    trec = rec['train'] = timed_train_steps(kcuda, step, tbatch, ('rotated_iou',),
+                                            atss_targets)
+    if min(trec['first_step_targets']['positive_anchors_per_scan']) <= 0:
+        fail(f'{label}: a scan without positive anchors: {trec["first_step_targets"]}')
+    log(f'# {label} bf16 step at batch {rec["batch"]}, ms median (quartiles) of '
+        f'{TRAIN_TIMED}: ' + ', '.join(
+            f'{k} {v["median"]:.2f} ({v["q1"]:.2f}-{v["q3"]:.2f})' for k, v in trec['ms'].items())
+        + f'; peak {trec["peak_mem_gib"]:.2f} GiB; launches {trec["launches_per_step"][0]}; '
+        f'loss {[round(x, 3) for x in trec["loss_terms"]["loss"]]}; first step '
+        f'{trec["first_step_targets"]}')
+    tcalls, rec['launches'] = captured_train_calls(kernels, step, tbatch, ('rotated_iou',))
+    rec['b1_shapes'] = [[list(a.shape) for a in c[1] if torch.is_tensor(a)]
+                        for c in tcalls['rotated_iou'].calls]
+    train_kernel_rows(tcalls, rec['launches'], rows, prefix=label)
+    del step, tcalls
+    torch.cuda.empty_cache()
+
+    zcfg.MODEL.DENSE_HEAD.TARGET_ASSIGNER_CONFIG.MATCH_HEIGHT = True
+    step = make_train_step(zcfg, tmeta, torch.bfloat16)
+    terms, launches, out = counted_train_step(kcuda, step, tbatch, ('rotated_iou',),
+                                              keep_out=True)
+    rec['match_height'] = {'terms': {k: float(v) for k, v in terms.items()},
+                           'launches': launches, 'targets': atss_targets(out)}
+    if not all(np.isfinite(v) for v in rec['match_height']['terms'].values()):
+        fail(f'{label} MATCH_HEIGHT step: {rec["match_height"]}')
+    log(f'# {label} MATCH_HEIGHT bf16 step: launches {launches}; targets '
+        f'{rec["match_height"]["targets"]}; loss {rec["match_height"]["terms"]["loss"]:.4f}')
+    del step, out
+    torch.cuda.empty_cache()
+    return rec
+
+
+def demo_phase(kernels, rows, ckpt):
+    """fv2p_torch.tools.demo.main in this process: fv2p.yaml on data/kitti's
+    first val scan with the checkpoint `ckpt` (kitti_train's), bf16, the
+    sparse tables built on the card at batch 1, counted (B1-B4 must each
+    launch); the same forward once more with every call captured, each call
+    held to the plain version and timed (`demo_*` keys); the forward's
+    median of FORWARD_REPS on the batch already on the card; the forward in
+    f32 without TF32 through the kernels and through the plain versions
+    (the same detections); then the default invocation (MGAF-3DSSD on the
+    synthetic scan, seeded weights, no checkpoint), counted. Returns the
+    record."""
+    from fv2p_torch.ops import cuda as kcuda
+    from fv2p_torch.tools import demo
+    from fv2p_torch.utils.synthetic import batch_to_torch
+    label = 'demo'
+    argv = ['--cfg_file', str(CFG), '--data_path', str(DEMO_SCAN), '--ckpt', str(ckpt)]
+    kcuda.reset_launch_counts()
+    run = demo.main(argv)
+    sync()
+    launches = dict(kcuda.launch_counts)
+    if min(launches.values()) == 0:
+        fail(f'{label}: a kernel was not launched in the demo\'s forward: {launches}')
+    dets = run['detections']
+    rec = {'argv': [str(a) for a in argv], 'launches': launches, 'setup_s': run['setup_s'],
+           'first_forward_ms': run['forward_ms'], 'detections': int(dets['pred_scores'].shape[0]),
+           'points_valid': int(run['batch']['points_valid'].sum()),
+           'voxels': int(run['batch']['voxel_valid'].sum())}
+    log(f'# {label}: {" ".join(rec["argv"])}: launches {launches}; host set-up '
+        f'{rec["setup_s"]:.2f} s, first forward {rec["first_forward_ms"]:.1f} ms; '
+        f'{rec["detections"]} detections ({rec["voxels"]} voxels, {rec["points_valid"]} points)')
+    model, batch = run['model'], batch_to_torch(run['batch'], 'cuda')
+    _, calls, again = counted_forward(kernels, model, batch, label, ALL_KERNELS)
+    if again != launches:
+        fail(f'{label}: the second forward launched {again}, the first {launches}')
+    train_kernel_rows(calls, launches, rows, prefix=label)
+    ms = timed_forwards(model, batch, FORWARD_REPS)
+    rec['forward_ms'] = {'median': float(np.median(ms)), 'all': ms}
+    log(f'# {label} forward at batch 1, ms median of {FORWARD_REPS}: '
+        f'{rec["forward_ms"]["median"]:.2f}')
+    del model, calls, run
+    torch.cuda.empty_cache()
+
+    with full_f32():
+        model32 = demo.build_model(load_cfg(CFG), 'cuda', compute_dtype=None, ckpt=ckpt)
+        out_k = forward(model32, batch)
+        with patched(kernels, plain_route):
+            out_p = forward(model32, batch)
+        sync()
+    for key in ('pred_valid', 'pred_labels'):
+        if not torch.equal(out_k[key], out_p[key]):
+            fail(f'{label} f32 forward: {key} differs between kernels and plain versions')
+    diffs = {key: float((out_k[key] - out_p[key]).abs().max())
+             for key in ('pred_boxes', 'pred_scores', 'point_features',
+                         'batch_iouscore_preds')}
+    if max(diffs.values()) > F32_ATOL:
+        fail(f'{label} f32 forward: {diffs} beyond {F32_ATOL}')
+    rec['f32_kernel_vs_plain_max_abs'] = diffs
+    rec['f32_detections'] = int(out_k['pred_valid'].sum())
+    log(f'# {label} f32 forward, kernels vs plain versions: {rec["f32_detections"]} '
+        f'detections in both, {diffs}')
+    del model32, out_k, out_p
+    torch.cuda.empty_cache()
+
+    kcuda.reset_launch_counts()
+    default = demo.main([])
+    sync()
+    rec['default'] = {'launches': dict(kcuda.launch_counts), 'setup_s': default['setup_s'],
+                      'forward_ms': default['forward_ms'],
+                      'detections': int(default['detections']['pred_scores'].shape[0])}
+    if rec['default']['launches']['rotated_iou'] == 0:
+        fail(f'{label}: the default invocation did not reach its NMS: {rec["default"]}')
+    log(f'# {label} default invocation (MGAF-3DSSD, synthetic scan): {rec["default"]}')
+    del default
+    torch.cuda.empty_cache()
+    return rec
 
 
 def kitti_eval_device_phase(kernels, rows, cfg, model, host_rec, host_first, host_first_np):
@@ -4989,9 +5166,20 @@ def main():
         zcfg = load_cfg(path)
         zrec[label] = zoo_phase(kernels, rows, label, zcfg,
                                 *zoo_batches(zcfg, batch_np, zoo_train_np), later)
-    del zoo_train_np
 
     lap('zoo')
+    # 9e'. second.yaml with the ATSS assigner on `second`'s train batch,
+    # then the demo on data/kitti's first val scan with kitti_train's
+    # checkpoint, and its default invocation
+    from fv2p_torch.tools import test as test_runner
+    atss_rec = second_atss_phase(kernels, rows, zoo_batches(load_cfg(SECOND_CFG), batch_np,
+                                                            zoo_train_np)[1])
+    del zoo_train_np
+    lap('second_atss')
+    demo_ckpt = test_runner.checkpoint_list(REPO / 'output' / 'chip_smoke' / 'kitti_train'
+                                            / 'ckpt')[-1][1]
+    demo_rec = demo_phase(kernels, rows, demo_ckpt)
+    lap('demo')
     # 9f. the runners with device rulebooks and SECOND on data/kitti
     krec['eval_device'] = kitti_eval_device_phase(kernels, rows, cfg, kmodel, krec['eval'],
                                                   kfirst, kfirst_np)
@@ -5102,6 +5290,7 @@ def main():
                   valid_detections=n_valid, mgaf=mrec, train=trec, mgaf_train=mtrec,
                   kitti=krec, device_rulebooks=drec, zoo=zrec, nuscenes=nrec, grid=grec,
                   waymo=wrec, pointrcnn=prec, parta2=parec, ddp=ddp_rec, phase_s=phase_s,
+                  second_atss=atss_rec, demo=demo_rec,
                   wall_s=time.perf_counter() - T_START)
     log(f'# seconds by phase: { {k: round(v, 1) for k, v in phase_s.items()} }')
     log(f'# chip_smoke.py wall time {record["wall_s"]:.1f} s')

@@ -127,9 +127,7 @@ class DataBaseSampler:
     def remove_points_in_boxes(points, boxes3d):
         if boxes3d.shape[0] == 0 or points.shape[0] == 0:
             return points
-        in_bev = box_utils.in_box_bev_np(points[:, :2], boxes3d)  # (M, N)
-        dz = np.abs(points[None, :, 2] - boxes3d[:, None, 2]) <= boxes3d[:, None, 5] / 2
-        inside_any = (in_bev & dz).any(axis=0)
+        inside_any = box_utils.points_in_boxes_np(points, boxes3d).any(axis=0)
         return points[~inside_any]
 
     def __call__(self, data_dict, rng):

@@ -1,9 +1,10 @@
 """nuScenes dataset (reference ``pcdet/datasets/nuscenes/nuscenes_dataset.py``):
 info-pkl loading, CBGS class-balanced resampling, multi-sweep lidar with a
 per-point time lag, prediction dicts and the devkit-free native evaluation
-(``nuscenes_eval_native``). The info files and the gt database are read as
-committed; building them (``create_nuscenes_info``,
-``create_groundtruth_database``) and the devkit's evaluation are not ported.
+(``nuscenes_eval_native``), and the gt database for the sampler
+(``create_groundtruth_database``). Building the info files
+(``create_nuscenes_info``) and the devkit's evaluation need the nuScenes
+devkit, and are not ported.
 
 The resampling and the choice of sweeps draw from ``self.rng``, as every
 draw of the data pipeline does (``datasets/dataset.py``); the resampling
@@ -14,6 +15,7 @@ from pathlib import Path
 
 import numpy as np
 
+from ...utils import box_utils
 from ..dataset import DatasetTemplate, data_root
 
 
@@ -100,6 +102,39 @@ class NuScenesDataset(DatasetTemplate):
         points = np.concatenate(sweep_points, axis=0)
         times = np.concatenate(sweep_times, axis=0).astype(points.dtype)
         return np.concatenate((points, times), axis=1)
+
+    def create_groundtruth_database(self, used_classes=None, max_sweeps=10):
+        """Write each gt object's multi-sweep points, relative to its box
+        centre, to ``gt_database_<S>sweeps_withvelo/<info index>_<name>_<i>.bin``
+        and the database of ``used_classes`` (every class: None) to
+        ``nuscenes_dbinfos_<S>sweeps_withvelo.pkl``, S = ``max_sweeps``, for
+        every info of ``self.infos``. The sweeps are drawn from ``self.rng``."""
+        database_save_path = self.root_path / f'gt_database_{max_sweeps}sweeps_withvelo'
+        db_info_save_path = self.root_path / f'nuscenes_dbinfos_{max_sweeps}sweeps_withvelo.pkl'
+        database_save_path.mkdir(parents=True, exist_ok=True)
+        all_db_infos = {}
+
+        for idx, info in enumerate(self.infos):
+            points = self.get_lidar_with_sweeps(idx, max_sweeps=max_sweeps)
+            gt_boxes = info['gt_boxes']
+            gt_names = info['gt_names']
+            if gt_boxes.shape[0] == 0:
+                continue
+            point_indices = box_utils.points_in_boxes_np(points, gt_boxes[:, :7])
+            for i in range(gt_boxes.shape[0]):
+                filepath = database_save_path / ('%s_%s_%d.bin' % (idx, gt_names[i], i))
+                gt_points = points[point_indices[i]]
+                gt_points[:, :3] -= gt_boxes[i, :3]
+                gt_points.tofile(filepath)
+                if used_classes is None or gt_names[i] in used_classes:
+                    all_db_infos.setdefault(gt_names[i], []).append({
+                        'name': gt_names[i], 'path': str(filepath.relative_to(self.root_path)),
+                        'image_idx': idx, 'gt_idx': i, 'box3d_lidar': gt_boxes[i],
+                        'num_points_in_gt': gt_points.shape[0]})
+        for k, v in all_db_infos.items():
+            print('Database %s: %d' % (k, len(v)))
+        with open(db_info_save_path, 'wb') as f:
+            pickle.dump(all_db_infos, f)
 
     def __len__(self):
         return len(self.infos)

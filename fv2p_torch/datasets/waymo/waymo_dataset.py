@@ -116,10 +116,7 @@ class WaymoDataset(DatasetTemplate):
             num_obj = gt_boxes.shape[0]
             if num_obj == 0:
                 continue
-            in_bev = box_utils.in_box_bev_np(points[:, :2], gt_boxes[:, :7])
-            dz = np.abs(points[None, :, 2] - gt_boxes[:, None, 2]) \
-                <= gt_boxes[:, None, 5] / 2
-            point_indices = in_bev & dz
+            point_indices = box_utils.points_in_boxes_np(points, gt_boxes[:, :7])
 
             for i in range(num_obj):
                 filename = '%s_%04d_%s_%d.bin' % (sequence_name, sample_idx, names[i], i)

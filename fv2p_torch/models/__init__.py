@@ -1,7 +1,10 @@
-"""Model building (counterpart of ``fv2p_tpu/models/__init__.py``)."""
-import torch
+"""Model building (counterpart of ``fv2p_tpu/models/__init__.py``).
 
-from .detectors.detector3d_template import build_detector
+The detectors are imported at the first build, not with this package:
+``ops.sparse.conv`` and ``ops.dcn`` import ``models.layers``, and the
+detectors import them back, so importing them here would make either
+module fail when it is the first one imported."""
+import torch
 
 
 def build_network(model_cfg, num_class, class_names, dataset_meta,
@@ -16,6 +19,7 @@ def build_network(model_cfg, num_class, class_names, dataset_meta,
             raise RuntimeError('fv2p_torch.models.build_network: no CUDA '
                                "device; pass device='cpu' to run on the CPU")
         device = 'cuda'
+    from .detectors.detector3d_template import build_detector
     model = build_detector(model_cfg, num_class=num_class,
                            class_names=class_names, dataset_meta=dataset_meta,
                            compute_dtype=compute_dtype)

@@ -6,7 +6,8 @@ Each level: a k3 conv (stride s, padding 1) + BN + ReLU, then LAYER_NUMS
 more k3 convs; each level is upsampled by a transposed conv (kernel ==
 stride) + BN + ReLU, or for an upsample stride s < 1 downsampled by a conv
 with kernel == stride == round(1 / s) (flax's 'SAME' padding), and the ups
-are concatenated into ``spatial_features_2d``. With ``USE_DCN`` each
+are concatenated into ``spatial_features_2d``, which one more upsample
+stride than levels upsamples once more. With ``USE_DCN`` each level's
 upsampling is preceded by a modulated deformable conv block + BN + ReLU.
 The batch dict keeps channels-last (B, H, W, C) maps; the convolutions run
 on NCHW internally. Module names follow the flax auto-names (``Conv_0``,
@@ -91,7 +92,21 @@ class _Deblock(nn.Module):
         return torch.relu(self.BatchNorm_1(self._resample(x)))
 
 
+def out_channels(model_cfg):
+    """Channels of ``spatial_features_2d``: the deblocks' filters, or
+    without deblocks every level's own."""
+    if model_cfg.get('UPSAMPLE_STRIDES', []):
+        return int(sum(model_cfg['NUM_UPSAMPLE_FILTERS']))
+    return int(sum(model_cfg['NUM_FILTERS']))
+
+
 class BaseBEVBackbone(nn.Module):
+    """The levels and their deblocks; with one upsample stride more than
+    levels, a trailing transposed conv of the concatenated map (kernel ==
+    stride == the last stride, no bias; ``ConvTranspose_0``) + BatchNorm
+    (``BatchNorm_0``) + ReLU, at f32 as flax infers it there. Without
+    upsample strides the levels' own maps are concatenated."""
+
     def __init__(self, model_cfg, input_channels, compute_dtype=None):
         super().__init__()
         use_dcn = bool(model_cfg.get('USE_DCN', False))
@@ -100,19 +115,23 @@ class BaseBEVBackbone(nn.Module):
         num_filters = model_cfg.get('NUM_FILTERS', [])
         upsample_strides = model_cfg.get('UPSAMPLE_STRIDES', [])
         num_up_filters = model_cfg.get('NUM_UPSAMPLE_FILTERS', [])
-        if len(upsample_strides) != len(layer_nums):
-            raise NotImplementedError(
-                'one upsampling deblock per level: the extra trailing deblock is '
-                'not in fv2p_torch yet (ROADMAP.md, queue A)')
         self.n_levels = len(layer_nums)
+        self.deblocks = len(upsample_strides) > 0
         cin = input_channels
         for i in range(self.n_levels):
             setattr(self, f'block{i}', _Block(cin, num_filters[i], layer_nums[i],
                                               layer_strides[i], compute_dtype))
-            setattr(self, f'deblock{i}', _Deblock(
-                num_filters[i], num_up_filters[i], upsample_strides[i],
-                use_dcn, compute_dtype))
+            if self.deblocks:
+                setattr(self, f'deblock{i}', _Deblock(
+                    num_filters[i], num_up_filters[i], upsample_strides[i],
+                    use_dcn, compute_dtype))
             cin = num_filters[i]
+        self.trailing = len(upsample_strides) > self.n_levels
+        if self.trailing:
+            width = out_channels(model_cfg)
+            self.ConvTranspose_0 = ConvTranspose2d(width, width, int(upsample_strides[-1]),
+                                                   bias=False)
+            self.BatchNorm_0 = BatchNorm(width, axis=1)
 
     def forward(self, batch_dict):
         x_in = batch_dict['spatial_features']               # (B, H, W, C)
@@ -122,8 +141,10 @@ class BaseBEVBackbone(nn.Module):
             x = getattr(self, f'block{i}')(x)
             stride = x_in.shape[1] // x.shape[2]
             batch_dict[f'spatial_features_{stride}x'] = x.permute(0, 2, 3, 1)
-            ups.append(getattr(self, f'deblock{i}')(x))
+            ups.append(getattr(self, f'deblock{i}')(x) if self.deblocks else x)
         x = torch.cat(ups, dim=1)
+        if self.trailing:
+            x = torch.relu(self.BatchNorm_0(self.ConvTranspose_0(x)))
         batch_dict['spatial_features_2d'] = x.permute(0, 2, 3, 1)
         return batch_dict
 

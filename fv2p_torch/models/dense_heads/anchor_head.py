@@ -1,15 +1,17 @@
 """Anchor-based RPN head (counterpart of
 ``fv2p_tpu/models/dense_heads/anchor_head.py``): anchors, the
 ``AnchorHeadSingle`` forward and the box decode, and for training the
-axis-aligned target assignment and the RPN loss."""
+target assignment (axis-aligned, or ATSS) and the RPN loss."""
 import math
 
 import numpy as np
 import torch
 from torch import nn
 
-from ...utils import box_coder_utils, common_utils, loss_utils
+from ...utils import box_coder_utils, common_utils, iou3d, loss_utils
 from ..layers import Dense
+
+ASSIGNERS = ('AxisAlignedTargetAssigner', 'ATSSTargetAssigner')
 
 
 def generate_anchors(anchor_generator_cfg, grid_size, point_cloud_range):
@@ -162,6 +164,69 @@ def anchor_head_loss(model_cfg, ret, anchors_flat, num_class):
     return rpn_loss, tb
 
 
+def atss_assign_targets_single(anchors_flat, gt_boxes, gt_classes, topk,
+                               box_coder, match_height=False):
+    """One sample's Adaptive Training Sample Selection
+    (https://arxiv.org/abs/1912.02424) over all anchors at once: each valid
+    gt takes its ``topk`` anchors of nearest centre as candidates, keeps
+    those whose IoU reaches mean + std (ddof 1) + 1e-6 of the candidates'
+    and whose centre lies in its BEV box; each anchor then takes its
+    highest-IoU gt among those that kept it, and each valid gt its best-IoU
+    anchor whatever the rest (the force match).
+
+    anchors_flat (Na, 7); gt_boxes (M, 7); gt_classes (M,) (0 = padding).
+    The IoU is rotated BEV (kernel B1 on the card), or 3-D with
+    ``match_height``. Ties keep JAX's order: among anchors at one distance
+    the lower index is the nearer (a stable sort; ``lax.top_k``), the
+    maximum over a row is its first, and where two gt rows force-match one
+    anchor the later row wins, as JAX's scatter on the CPU leaves it. Returns
+    labels (Na,) int32 (0 background, else the class), reg_targets (Na, 7)
+    and reg_weights (Na,)."""
+    na, m = anchors_flat.shape[0], gt_boxes.shape[0]
+    gt_valid = gt_classes > 0
+    iou_fn = iou3d.boxes_iou3d if match_height else iou3d.boxes_iou_bev
+    ious = torch.where(gt_valid[None, :],
+                       iou_fn(anchors_flat[:, :7], gt_boxes[:, :7]), -1.0)   # (Na, M)
+
+    diff = anchors_flat[:, None, 0:3] - gt_boxes[None, :, 0:3]
+    dist = torch.where(gt_valid[None, :], (diff * diff).sum(-1).sqrt(), math.inf)
+    topk_idxs = torch.sort(dist.T, dim=1, stable=True)[1][:, :topk]      # (M, K)
+
+    cand_ious = torch.gather(ious.T, 1, topk_idxs)
+    thresh = cand_ious.mean(dim=1) + cand_ious.std(dim=1, correction=1) + 1e-6
+    is_pos = cand_ious >= thresh[:, None]
+
+    # the candidate's centre inside the gt's BEV box
+    cand = anchors_flat[topk_idxs.reshape(-1)]                            # (M*K, 7)
+    gt_rep = torch.repeat_interleave(gt_boxes, topk, dim=0)
+    local = common_utils.rotate_points_along_z(
+        (cand[:, 0:3] - gt_rep[:, 0:3])[:, None, :], -gt_rep[:, 6])[:, 0, :2]
+    half = gt_rep[:, 3:5] / 2
+    in_gt = ((local <= half) & (local >= -half)).all(dim=-1).reshape(m, topk)
+    is_pos = is_pos & in_gt & gt_valid[:, None]
+
+    # eligible (anchor, gt) pairs: the kept candidates
+    elig = torch.zeros(na * m, dtype=torch.bool, device=anchors_flat.device)
+    elig[(topk_idxs * m + torch.arange(m, device=topk_idxs.device)[:, None])[is_pos]] = True
+    ious_elig = torch.where(elig.reshape(na, m), ious, -1e9)
+    a2g_val, a2g_idx = ious_elig.max(dim=1)           # the first maximum
+
+    # the force match, the later gt row winning an anchor two rows share
+    g2a_max, best_anchor = ious.max(dim=0)
+    rows = torch.arange(m, device=gt_boxes.device)
+    winner = torch.full((na,), -1, dtype=torch.long, device=gt_boxes.device)
+    winner.scatter_reduce_(0, best_anchor[gt_valid], rows[gt_valid], 'amax')
+    forced = winner >= 0
+    a2g_idx = torch.where(forced, winner, a2g_idx)
+    a2g_val = torch.where(forced, g2a_max[winner.clamp(min=0)], a2g_val)
+
+    labels = torch.where(a2g_val > -1e9 / 2, gt_classes[a2g_idx], 0).to(torch.int32)
+    fg = labels > 0
+    targets = box_coder.encode(gt_boxes[a2g_idx], anchors_flat)
+    reg_targets = torch.where(fg[:, None], targets, 0.0)
+    return labels, reg_targets, fg.to(torch.float32)
+
+
 class AnchorHeadSingle(nn.Module):
     """1x1 cls / box / direction convs over the BEV map, then the decode of
     every anchor's box (the RoI head consumes all of them, in training
@@ -185,8 +250,14 @@ class AnchorHeadSingle(nn.Module):
         self.conv_cls = Dense(input_channels, a * num_class, conv1x1=True)
         self.conv_box = Dense(input_channels, a * 7, conv1x1=True)
         self.conv_dir_cls = Dense(input_channels, a * self.num_dir_bins, conv1x1=True)
-        self.box_coder = getattr(
-            box_coder_utils, model_cfg.TARGET_ASSIGNER_CONFIG.BOX_CODER)()
+        ta_cfg = model_cfg.TARGET_ASSIGNER_CONFIG
+        self.box_coder = getattr(box_coder_utils, ta_cfg.BOX_CODER)()
+        self.assigner = ta_cfg.get('NAME', ASSIGNERS[0])
+        if self.assigner not in ASSIGNERS:
+            raise NotImplementedError(f'target assigner {self.assigner}: AnchorHeadSingle '
+                                      f'knows {ASSIGNERS}')
+        self.atss_topk = int(ta_cfg.get('TOPK', 9))
+        self.atss_match_height = bool(ta_cfg.get('MATCH_HEIGHT', False))
         # per anchor of one location: class id and match thresholds
         cls_ids, matched, unmatched = [], [], []
         for ci, acfg in enumerate(model_cfg.ANCHOR_GENERATOR_CONFIG):
@@ -223,11 +294,17 @@ class AnchorHeadSingle(nn.Module):
 
     def assign_targets(self, gt_boxes_with_cls):
         """gt (B, M, 8) -> box_cls_labels (B, Na), box_reg_targets
-        (B, Na, 7), reg_weights (B, Na)."""
-        outs = [assign_targets_single(
-            self.anchors_flat, self.anchor_cls, gt[:, :7], gt[:, 7].to(torch.int32),
-            self.matched_t, self.unmatched_t, self.box_coder)
-            for gt in gt_boxes_with_cls]
+        (B, Na, 7), reg_weights (B, Na), by the config's assigner, one scan
+        at a time."""
+        def single(gt):
+            if self.assigner == 'ATSSTargetAssigner':
+                return atss_assign_targets_single(
+                    self.anchors_flat, gt[:, :7], gt[:, 7].to(torch.int32), self.atss_topk,
+                    self.box_coder, match_height=self.atss_match_height)
+            return assign_targets_single(
+                self.anchors_flat, self.anchor_cls, gt[:, :7], gt[:, 7].to(torch.int32),
+                self.matched_t, self.unmatched_t, self.box_coder)
+        outs = [single(gt) for gt in gt_boxes_with_cls]
         labels, reg_targets, reg_weights = (torch.stack(x) for x in zip(*outs))
         return {'box_cls_labels': labels, 'box_reg_targets': reg_targets,
                 'reg_weights': reg_weights}

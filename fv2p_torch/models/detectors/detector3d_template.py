@@ -17,7 +17,8 @@ import torch
 from torch import nn
 
 from ..model_utils import model_nms_utils
-from ..backbones_2d.base_bev_backbone import BaseBEVBackbone, DCNBEVBackbone
+from ..backbones_2d.base_bev_backbone import (BaseBEVBackbone, DCNBEVBackbone,
+                                              out_channels as bev_out_channels)
 from ..backbones_2d.map_to_bev.height_compression import HeightCompression
 from ..backbones_2d.map_to_bev.pointpillar_scatter import PointPillarScatter
 from ..backbones_3d.pfe.residual_v2p_decoder import ResidualVoxelToPointDecoder
@@ -91,9 +92,7 @@ class Detector3DTemplate(nn.Module):
             setattr(self, slot, getattr(self, f'_build_{slot}')())
 
     def _bev_out_channels(self):
-        bev_cfg = self.model_cfg.BACKBONE_2D
-        return int(sum(bev_cfg.get('NUM_UPSAMPLE_FILTERS',
-                                   [bev_cfg['NUM_FILTERS'][-1]])))
+        return bev_out_channels(self.model_cfg.BACKBONE_2D)
 
     def _build_vfe(self):
         cfg, meta = self.model_cfg.VFE, self.dataset_meta

@@ -6,7 +6,10 @@ it); without one they compute in f32, as flax infers from f32 parameters.
 ``BatchNorm`` is flax's BatchNorm (epsilon 1e-3 unless given, momentum
 0.99): f32 statistics and output, ``(x - mean) * (scale * rsqrt(var + eps))
 + bias``, with the running statistics in eval mode and the batch's in
-training. ``Dropout`` is flax's, drawn from an explicit ``torch.Generator``.
+training. ``LayerNorm`` is flax's (epsilon 1e-6, the same statistics
+formula as BatchNorm's), and ``DenseGeneral`` flax's product over several
+input axes into several output axes, its kernel kept in flax's layout.
+``Dropout`` is flax's, drawn from an explicit ``torch.Generator``.
 ``weights.load_flax_variables`` maps these modules onto flax param trees by
 their dotted names.
 """
@@ -16,6 +19,7 @@ from torch import nn
 
 BN_EPS = 1e-3
 BN_MOMENTUM = 0.99      # running = 0.99 * running + 0.01 * batch
+LN_EPS = 1e-6           # flax LayerNorm's epsilon
 
 
 def _dt(compute_dtype, x):
@@ -134,6 +138,39 @@ class BatchNorm(nn.Module):
         mul = (torch.rsqrt(var + self.eps) * self.weight).reshape(s)
         y = (x.to(torch.float32) - mean.reshape(s)) * mul
         return y + self.bias.reshape(s)
+
+
+class LayerNorm(nn.Module):
+    """flax ``nn.LayerNorm`` over the last axis: f32 statistics (the mean and
+    ``max(0, mean(x^2) - mean(x)^2)``), ``(x - mean) * (scale * rsqrt(var +
+    LN_EPS)) + bias``."""
+
+    def __init__(self, num_features):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+
+    def forward(self, x):
+        xf = x.to(torch.float32)
+        mean = xf.mean(dim=-1, keepdim=True)
+        var = torch.clamp((xf * xf).mean(dim=-1, keepdim=True) - mean * mean, min=0.0)
+        return (xf - mean) * (torch.rsqrt(var + LN_EPS) * self.weight) + self.bias
+
+
+class DenseGeneral(nn.Module):
+    """flax ``nn.DenseGeneral``: the last ``len(in_shape)`` axes of the input
+    contracted with a kernel of shape ``in_shape + out_shape`` (flax's
+    layout), plus a bias of ``out_shape``; multi-head attention's
+    projections ((E,) -> (H, D) and (H, D) -> (E,))."""
+
+    def __init__(self, in_shape, out_shape):
+        super().__init__()
+        self.n_in = len(in_shape)
+        self.kernel = nn.Parameter(torch.empty(*in_shape, *out_shape))
+        self.bias = nn.Parameter(torch.zeros(*out_shape))
+
+    def forward(self, x):
+        return torch.tensordot(x.to(self.kernel.dtype), self.kernel, dims=self.n_in) + self.bias
 
 
 class Dropout(nn.Module):

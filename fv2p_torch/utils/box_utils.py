@@ -54,6 +54,14 @@ def boxes_to_CTcorners_3d(boxes3d):
     return boxes3d[:, None, 3:6] * _template(boxes3d, 8, 3)[None]
 
 
+def enlarge_box3d(boxes3d, extra_width=(0, 0, 0)):
+    """(N, 7+) center-based boxes with dx, dy, dz grown by ``extra_width``;
+    the centre and the heading stay."""
+    large = boxes3d.clone()
+    large[:, 3:6] += torch.as_tensor(extra_width, dtype=boxes3d.dtype, device=boxes3d.device)
+    return large
+
+
 def decode_rot_binres(pred_reg, num_head_bin=None):
     """Bin + residual heading decode: pred_reg (N, 2 * bins) -> (N, 1) in
     (-pi, pi]. Bin centers at k * (2 pi / bins), the residual scaled by half
@@ -275,3 +283,11 @@ def in_box_bev_np(points_xy, boxes3d):
     local_y = shift[..., 0] * sina + shift[..., 1] * cosa
     return (np.abs(local_x) <= boxes3d[:, None, 3] / 2) & \
            (np.abs(local_y) <= boxes3d[:, None, 4] / 2)
+
+
+def points_in_boxes_np(points, boxes3d):
+    """(N, >=3) points x (M, 7) boxes -> (M, N) bool: inside in BEV and
+    within half the box's height of its centre (numpy; the gt databases'
+    test)."""
+    dz = np.abs(points[None, :, 2] - boxes3d[:, None, 2]) <= boxes3d[:, None, 5] / 2
+    return in_box_bev_np(points[:, :2], boxes3d) & dz

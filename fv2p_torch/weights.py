@@ -11,9 +11,11 @@ one torch submodule (``a/b/c`` -> ``a.b.c``):
   (kX, kY, kZ, I, O) -> (O, I, kX, kY, kZ);
 * ``ConvTranspose`` kernel (kH, kW, I, O) -> spatially flipped, (I, O, kH, kW);
 * sparse-conv kernels and the deformable conv's own kernel, both
-  (K, Cin, Cout), stay as they are;
+  (K, Cin, Cout), and ``DenseGeneral`` kernels (multi-head attention's
+  (E, H, D) and (H, D, E)) stay as they are;
 * BatchNorm ``scale``/``bias`` + ``batch_stats`` ``mean``/``var`` -> weight,
-  bias, running_mean, running_var.
+  bias, running_mean, running_var; LayerNorm ``scale``/``bias`` -> weight,
+  bias.
 
 Any flax leaf without a torch home, or torch tensor left unfilled, raises.
 ``flax_variables(model)`` is the converse: the port's parameters and
@@ -36,7 +38,8 @@ import math
 import numpy as np
 import torch
 
-from .models.layers import BatchNorm, Conv3d, ConvTranspose2d, Dense
+from .models.layers import (BatchNorm, Conv3d, ConvTranspose2d, Dense, DenseGeneral,
+                            LayerNorm)
 from .ops.dcn import MdeformConvBlock
 from .ops.sparse.conv import MaskedBatchNorm, _SparseConvBase
 
@@ -51,7 +54,7 @@ def _flatten(tree, prefix=()):
 
 def _converted(module, leaf, arr):
     """The torch attribute name and tensor for one flax leaf of a module."""
-    if isinstance(module, (BatchNorm, MaskedBatchNorm)):
+    if isinstance(module, (BatchNorm, MaskedBatchNorm, LayerNorm)):
         name = {'scale': 'weight', 'bias': 'bias', 'mean': 'running_mean',
                 'var': 'running_var'}[leaf]
         return name, arr
@@ -59,7 +62,7 @@ def _converted(module, leaf, arr):
         return 'bias', arr
     if leaf != 'kernel':
         raise KeyError(leaf)
-    if isinstance(module, (_SparseConvBase, MdeformConvBlock)):
+    if isinstance(module, (_SparseConvBase, MdeformConvBlock, DenseGeneral)):
         return 'kernel', arr
     if isinstance(module, Dense):
         return 'weight', arr.reshape(arr.shape[-2], arr.shape[-1]).T
@@ -110,7 +113,9 @@ def _flax_leaves(module, tensors):
         return [('params', 'scale', arr('weight')), ('params', 'bias', arr('bias')),
                 ('batch_stats', 'mean', arr('running_mean')),
                 ('batch_stats', 'var', arr('running_var'))]
-    if isinstance(module, (_SparseConvBase, MdeformConvBlock)):
+    if isinstance(module, LayerNorm):
+        return [('params', 'scale', arr('weight')), ('params', 'bias', arr('bias'))]
+    if isinstance(module, (_SparseConvBase, MdeformConvBlock, DenseGeneral)):
         kernel = arr('kernel')
     elif isinstance(module, Dense):
         kernel = arr('weight').T
@@ -157,10 +162,11 @@ def init_random_(model, seed=0):
     gen = torch.Generator().manual_seed(seed)
     for name, module in model.named_modules():
         if isinstance(module, (BatchNorm, MaskedBatchNorm)):
-            module.weight.fill_(1.0)
-            module.bias.zero_()
             module.running_mean.zero_()
             module.running_var.fill_(1.0)
+        if isinstance(module, (BatchNorm, MaskedBatchNorm, LayerNorm)):
+            module.weight.fill_(1.0)
+            module.bias.zero_()
             continue
         if isinstance(module, (_SparseConvBase, MdeformConvBlock)):
             w = module.kernel                       # (K, Cin, Cout)
@@ -168,6 +174,9 @@ def init_random_(model, seed=0):
         elif isinstance(module, ConvTranspose2d):
             w = module.weight                       # (I, O, kH, kW)
             fan_in = w.shape[0] * w.shape[2] * w.shape[3]
+        elif isinstance(module, DenseGeneral):
+            w = module.kernel                       # in_shape + out_shape
+            fan_in = math.prod(w.shape[:module.n_in])
         elif isinstance(module, (Dense, torch.nn.Conv2d, Conv3d)):
             w = module.weight                       # (O, I, ...)
             fan_in = math.prod(w.shape[1:])

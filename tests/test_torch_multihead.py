@@ -52,7 +52,7 @@ from fv2p_torch.models.backbones_2d.base_bev_backbone import BaseBEVBackbone
 from fv2p_torch.models.dense_heads import anchor_head_multi
 from fv2p_torch.utils import box_coder_utils
 from fv2p_torch.utils.synthetic import batch_to_torch
-from fv2p_torch.weights import init_random_, load_flax_variables
+from fv2p_torch.weights import flax_variables, init_random_, load_flax_variables
 from tests.test_torch_model import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 REPO = Path(__file__).resolve().parent.parent
@@ -139,6 +139,56 @@ def test_downsampling_deblock_matches_jax(size):
         got = tmod({'spatial_features': _t(x)})['spatial_features_2d']
     assert got.shape[1:3] == (-(-h // 2), -(-w // 2))
     assert_close(got, ref)
+
+
+BEV_CASES = {
+    # one upsample stride more than levels: the trailing deblock
+    'trailing': {'UPSAMPLE_STRIDES': [1, 2, 2], 'NUM_UPSAMPLE_FILTERS': [8, 8]},
+    # no deblocks: the levels' own maps (one level, so that they concatenate)
+    'no_deblocks': {'LAYER_NUMS': [1], 'LAYER_STRIDES': [1], 'NUM_FILTERS': [8],
+                    'UPSAMPLE_STRIDES': [], 'NUM_UPSAMPLE_FILTERS': []},
+}
+
+
+@pytest.mark.parametrize('train', [False, True], ids=['eval', 'train'])
+@pytest.mark.parametrize('case', sorted(BEV_CASES))
+def test_trailing_deblock_matches_jax(case, train):
+    """BaseBEVBackbone with UPSAMPLE_STRIDES [1, 2, 2] over two levels (the
+    concatenated 16 channels upsampled by 2 once more: ConvTranspose_0,
+    BatchNorm_0, ReLU), and with no deblocks, on a (2, 12, 10, 8) map from
+    JAX's weights: the output within ``assert_close``'s 1e-4, and in train
+    mode every running statistic too. Every flax leaf finds its torch
+    tensor (``load_flax_variables`` raises otherwise)."""
+    cfg = EasyDict({'NAME': 'BaseBEVBackbone', 'LAYER_NUMS': [1, 1], 'LAYER_STRIDES': [1, 2],
+                    'NUM_FILTERS': [8, 16], **BEV_CASES[case]})
+    x = np.random.RandomState(3).randn(2, 12, 10, 8).astype(np.float32)
+    jmod = JaxBEV(model_cfg=StaticConfig(JaxEasyDict(dict(cfg))), input_channels=8)
+    variables = jmod.init(jax.random.PRNGKey(0), {'spatial_features': jnp.asarray(x)})
+    vnp = perturb_bn(jax.tree_util.tree_map(np.asarray, dict(variables)),
+                     np.random.RandomState(4))
+    jvars = jax.tree_util.tree_map(jnp.asarray, vnp)
+    if train:
+        out, new = jmod.apply(jvars, {'spatial_features': jnp.asarray(x)}, train=True,
+                              mutable=['batch_stats'])
+    else:
+        out = jmod.apply(jvars, {'spatial_features': jnp.asarray(x)})
+    tmod = load_flax_variables(BaseBEVBackbone(cfg, 8), vnp).train(train)
+    with torch.no_grad():
+        got = tmod({'spatial_features': _t(x)})['spatial_features_2d']
+    ref = np.asarray(out['spatial_features_2d'])
+    assert ref.shape == ((2, 24, 20, 16) if case == 'trailing' else (2, 12, 10, 8))
+    assert_close(got, ref)
+    if case == 'trailing':
+        assert tuple(tmod.ConvTranspose_0.weight.shape) == (16, 16, 2, 2)
+    if train:
+        stats = flax_variables(tmod)['batch_stats']
+        ref_stats = jax.tree_util.tree_leaves_with_path(new['batch_stats'])
+        assert len(ref_stats) == len(jax.tree_util.tree_leaves(stats))
+        for path, leaf in ref_stats:
+            node = stats
+            for k in path:
+                node = node[k.key]
+            assert_close(node, leaf)
 
 
 # ------------------------------------------------------- the tiny models

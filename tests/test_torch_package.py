@@ -53,6 +53,45 @@ def test_port_imports_no_jax(path):
     assert not bad, f'{path} imports {bad}'
 
 
+PORT_MODULES = sorted(
+    '.'.join(p.relative_to(REPO).with_suffix('').parts[:-1] if p.name == '__init__.py'
+             else p.relative_to(REPO).with_suffix('').parts)
+    for p in (REPO / 'fv2p_torch').rglob('*.py'))
+
+FIRST_IMPORT = """import importlib, json, sys
+out = {}
+for name in json.loads(sys.argv[1]):
+    for m in [m for m in sys.modules if m == 'fv2p_torch' or m.startswith('fv2p_torch.')]:
+        del sys.modules[m]
+    try:
+        importlib.import_module(name)
+        out[name] = None
+    except Exception as e:
+        out[name] = f'{type(e).__name__}: {e}'
+print(json.dumps(out))
+"""
+
+
+@pytest.fixture(scope='module')
+def first_imports():
+    """Each module of the port imported first, in one fresh interpreter
+    (torch loaded once, every ``fv2p_torch`` module dropped from
+    ``sys.modules`` before the next): the error each raised, or None."""
+    import json
+    import subprocess
+    import sys
+    done = subprocess.run([sys.executable, '-c', FIRST_IMPORT, json.dumps(PORT_MODULES)],
+                          cwd=REPO, capture_output=True, text=True, timeout=300, check=True)
+    return json.loads(done.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize('name', PORT_MODULES)
+def test_module_imports_first(first_imports, name):
+    """Every module imports in a fresh interpreter before any other of the
+    package (no import cycle; ``ops.sparse.conv`` was one)."""
+    assert first_imports[name] is None, first_imports[name]
+
+
 def _cdll_calls(path):
     tree = ast.parse(path.read_text(), filename=str(path))
     return [n for n in ast.walk(tree) if isinstance(n, ast.Call)
