@@ -21,7 +21,7 @@ from torch import nn
 
 from ....ops import pointops
 from ....ops.sparse.sparse_tensor import sample_row_bounds
-from ....utils import common_utils
+from ....utils import common_utils, tracing
 from ...layers import BatchNorm, Dense
 
 
@@ -129,6 +129,8 @@ class VoxelSetAbstraction(nn.Module):
         # every level's sample bounds in one read of the card
         bounds = torch.stack([sample_row_bounds(ms[name]) for name in self.levels]).tolist() \
             if self.levels else []
+        if self.levels:
+            tracing.count('host_reads.voxel_set_abstraction.sample_bounds')
         for name, lb in zip(self.levels, bounds):
             st = ms[name]
             centers = common_utils.get_voxel_centers(

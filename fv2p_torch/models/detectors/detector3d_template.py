@@ -16,6 +16,7 @@ not have raises NotImplementedError naming it."""
 import torch
 from torch import nn
 
+from ...utils import tracing
 from ..model_utils import model_nms_utils
 from ..backbones_2d.base_bev_backbone import (BaseBEVBackbone, DCNBEVBackbone,
                                               out_channels as bev_out_channels)
@@ -44,6 +45,7 @@ from ..roi_heads.voxelrcnn_head import VoxelRCNNHead, voxelrcnn_head_loss
 MODULE_TOPOLOGY = ['vfe', 'backbone_3d', 'map_to_bev_module', 'pfe',
                    'backbone_2d', 'dense_head', 'post_pfe', 'point_head',
                    'roi_head']
+_SLOT_SPANS = tuple((slot, f'slot:{slot}') for slot in MODULE_TOPOLOGY)
 
 # each slot's config key and the ported modules it may name
 _SLOT_KEYS = {'vfe': 'VFE', 'backbone_3d': 'BACKBONE_3D',
@@ -187,17 +189,22 @@ class Detector3DTemplate(nn.Module):
                                 tuple(meta['voxel_size']), self._point_channels(),
                                 self._bev_out_channels(), self.compute_dtype)
 
-    def module_list(self):
-        return [getattr(self, slot) for slot in MODULE_TOPOLOGY
-                if hasattr(self, slot)]
+    def _run_slots(self, batch_dict):
+        for slot, span_name in _SLOT_SPANS:
+            if hasattr(self, slot):
+                with tracing.span(span_name):
+                    batch_dict = getattr(self, slot)(batch_dict)
+        return batch_dict
 
     def forward(self, batch_dict):
+        """Opens a step of ``utils/tracing`` (each slot is a span of it)."""
+        tracing.open_step()
         if self.training:
             return self.train_forward(batch_dict)
         with torch.no_grad():
-            for module in self.module_list():
-                batch_dict = module(batch_dict)
-            batch_dict.update(self.final_predictions(batch_dict))
+            batch_dict = self._run_slots(batch_dict)
+            with tracing.span('slot:post_processing'):
+                batch_dict.update(self.final_predictions(batch_dict))
         return batch_dict
 
     def final_predictions(self, batch_dict):
@@ -207,9 +214,7 @@ class Detector3DTemplate(nn.Module):
         """The slots in train mode, with autograd and without
         post-processing; ``batch_dict`` needs ``gt_boxes`` (B, M, 8) and may
         carry ``generators`` ({'sampling', 'dropout'}: torch.Generator)."""
-        for module in self.module_list():
-            batch_dict = module(batch_dict)
-        return batch_dict
+        return self._run_slots(batch_dict)
 
     def post_processing(self, batch_dict):
         """Cls-score NMS: each anchor's best class probability above

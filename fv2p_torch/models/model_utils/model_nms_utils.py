@@ -4,13 +4,14 @@ NMS and so on kernel B1 for a CUDA tensor. Fixed shapes, as JAX's: each
 returns (post_max,) rows and a validity mask in place of ragged lists."""
 import torch
 
-from ...utils import iou3d
+from ...utils import iou3d, tracing
 
 
 def _nms(box_preds, nms_scores, nms_config):
     pre = int(min(nms_config.NMS_PRE_MAXSIZE, box_preds.shape[0]))
-    return iou3d.nms_rotated(box_preds[:, :7], nms_scores, float(nms_config.NMS_THRESH),
-                             pre_max=pre, post_max=int(nms_config.NMS_POST_MAXSIZE))
+    with tracing.span('slot:post_processing.nms'):
+        return iou3d.nms_rotated(box_preds[:, :7], nms_scores, float(nms_config.NMS_THRESH),
+                                 pre_max=pre, post_max=int(nms_config.NMS_POST_MAXSIZE))
 
 
 def _thresholded(scores, thresh):

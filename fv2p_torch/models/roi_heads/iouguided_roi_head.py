@@ -17,7 +17,7 @@ from torch import nn
 
 from ...ops import pointops
 from ...ops.cuda.sa_group import sa_group_pool_fused
-from ...utils import box_coder_utils, box_utils, common_utils, iou3d, loss_utils
+from ...utils import box_coder_utils, box_utils, common_utils, iou3d, loss_utils, tracing
 from ..layers import BN_EPS, BatchNorm, Dense, Dropout
 
 
@@ -31,8 +31,9 @@ def proposal_layer(batch_box_preds, batch_cls_preds, nms_cfg):
 
     roi_scores_all, roi_labels_all = batch_cls_preds.max(dim=-1)
     roi_labels_all = roi_labels_all + 1
-    keep = [iou3d.nms_rotated(bx, sc, thresh, pre_max=pre, post_max=post)
-            for bx, sc in zip(batch_box_preds, roi_scores_all)]
+    with tracing.span('slot:roi_head.proposal_nms'):
+        keep = [iou3d.nms_rotated(bx, sc, thresh, pre_max=pre, post_max=post)
+                for bx, sc in zip(batch_box_preds, roi_scores_all)]
     keep_idx = torch.stack([k[0] for k in keep])
     keep_valid = torch.stack([k[1] for k in keep])
 
@@ -578,13 +579,15 @@ class IoUGuidedRoIHead(nn.Module):
         if self.training:
             return self._train_forward(batch_dict)
 
-        cls0_raw, reg0, iou0_raw = self.feature_net(batch_dict, rois)
-        cls0, box0, _ = self._generate_predicted_boxes(rois, cls0_raw, reg0,
-                                                       iou0_raw)
+        with tracing.span('slot:roi_head.pass1'):
+            cls0_raw, reg0, iou0_raw = self.feature_net(batch_dict, rois)
+            cls0, box0, _ = self._generate_predicted_boxes(rois, cls0_raw, reg0,
+                                                           iou0_raw)
         # two-pass IoU alignment: re-pool at the refined boxes
-        cls1_raw, reg1, iou1_raw = self.feature_net(batch_dict, box0)
-        _, _, iou1 = self._generate_predicted_boxes(box0, cls1_raw, reg1,
-                                                    iou1_raw)
+        with tracing.span('slot:roi_head.pass2'):
+            cls1_raw, reg1, iou1_raw = self.feature_net(batch_dict, box0)
+            _, _, iou1 = self._generate_predicted_boxes(box0, cls1_raw, reg1,
+                                                        iou1_raw)
         batch_dict['batch_cls_preds'] = cls0
         batch_dict['batch_box_preds'] = box0
         batch_dict['batch_iouscore_preds'] = two_pass_final_score(cls0, iou1)

@@ -11,7 +11,7 @@ walk, and QUERY_RANGES is not read. The loss is ``pvrcnn_head_loss``."""
 import torch
 
 from ...ops.sparse.sparse_tensor import sample_row_bounds
-from ...utils import common_utils
+from ...utils import common_utils, tracing
 from ..backbones_3d.pfe.voxel_set_abstraction import add_msg_mlps, msg_pool
 from ..layers import BatchNorm, Dense
 from .pvrcnn_head import RoIGridHead, pvrcnn_head_loss
@@ -48,6 +48,7 @@ class VoxelRCNNHead(RoIGridHead):
         strides = batch_dict['multi_scale_3d_strides']
         # every level's sample bounds in one read of the card
         bounds = torch.stack([sample_row_bounds(ms[s]) for s in self.sources]).tolist()
+        tracing.count('host_reads.voxelrcnn_head.sample_bounds')
         pooled = []
         for s, lb in zip(self.sources, bounds):
             st = ms[s]

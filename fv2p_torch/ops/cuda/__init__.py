@@ -7,8 +7,9 @@ and flags, so an edited source rebuilds) and loaded with ``ctypes``.
 
 Every kernel module here pairs the launch with a plain PyTorch version of
 the same function: a CPU tensor takes the plain version, a CUDA tensor
-launches the kernel or raises. ``launch_counts`` holds one integer per
-kernel, bumped only where the kernel is launched.
+launches the kernel or raises. ``launch_counts`` reads one integer per
+kernel, the ``launches.<kernel>`` counter of ``utils/tracing``, bumped only
+where the kernel is launched.
 """
 import ctypes
 import hashlib
@@ -16,9 +17,12 @@ import os
 import shutil
 import subprocess
 import time
+from collections.abc import Mapping
 from pathlib import Path
 
 import torch
+
+from ...utils import tracing
 
 KERNELS = ('rotated_iou', 'fps', 'three_nn', 'sa_group')
 
@@ -45,13 +49,30 @@ SIGNATURES = {
                                    _I, _I, _I, _F, _F, _I, _I, _P)},
 }
 
-launch_counts = {name: 0 for name in KERNELS}
 _libs = {}
 
 
+class _LaunchCounts(Mapping):
+    """{kernel: launches since the last reset}, a view of the tracing
+    registry's ``launches.<kernel>`` counters."""
+
+    def __getitem__(self, name):
+        if name not in KERNELS:
+            raise KeyError(name)
+        return tracing.counter(f'launches.{name}')
+
+    def __iter__(self):
+        return iter(KERNELS)
+
+    def __len__(self):
+        return len(KERNELS)
+
+
+launch_counts = _LaunchCounts()
+
+
 def reset_launch_counts():
-    for name in launch_counts:
-        launch_counts[name] = 0
+    tracing.reset_counters('launches.')
 
 
 def _nvcc():

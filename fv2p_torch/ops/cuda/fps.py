@@ -14,7 +14,9 @@ before it launches anything.
 """
 import torch
 
-from . import check_launch, check_tensor, launch_counts, library, require, stream_handle
+from ...utils import tracing
+
+from . import check_launch, check_tensor, library, require, stream_handle
 
 _BIG = 1e10
 # Three instantiations of the kernel, by the scan's point count N. Up to
@@ -65,7 +67,7 @@ def _launch(entry, points, valid, num_samples):
 
 def fps_cuda(points, valid, num_samples):
     out = _launch('fv2p_fps', points, valid, num_samples)
-    launch_counts['fps'] += 1
+    tracing.count('launches.fps')
     return out
 
 

@@ -17,8 +17,8 @@ area over (N, M) tensors, without a cull.
 """
 import torch
 
-from ...utils import box_utils
-from . import (check_launch, check_tensor, launch_counts, library, require,
+from ...utils import box_utils, tracing
+from . import (check_launch, check_tensor, library, require,
                stream_handle)
 
 _EPS = 1e-8
@@ -112,7 +112,7 @@ def _launch(entry, a, b, names, row_shape, *flags):
     code = getattr(lib, entry)(a.data_ptr(), b.data_ptr(), out.data_ptr(), n, m,
                                *flags, stream_handle(a.device))
     check_launch('rotated_iou', lib, code)
-    launch_counts['rotated_iou'] += 1
+    tracing.count('launches.rotated_iou')
     return out
 
 

@@ -10,8 +10,9 @@ the output (R, G, 2H) is radius-0 channels | radius-1 channels, in bf16.
 """
 import torch
 
+from ...utils import tracing
 from ..pointops import first_k_hits
-from . import (aligned, check_launch, check_tensor, launch_counts, library, require,
+from . import (aligned, check_launch, check_tensor, library, require,
                stream_handle)
 
 HIDDEN = 64
@@ -75,7 +76,7 @@ def sa_group_pool_cuda(centers, xyz, valid, z, cw, w2, b1, b2, radii,
         float(radii[1]) ** 2, int(nsamples[0]), int(nsamples[1]),
         stream_handle(centers.device))
     check_launch('sa_group', lib, code)
-    launch_counts['sa_group'] += 1
+    tracing.count('launches.sa_group')
     return out
 
 

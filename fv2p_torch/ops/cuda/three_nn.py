@@ -15,7 +15,9 @@ scratch of both: the tile boxes and the sources repacked as float4.
 """
 import torch
 
-from . import (check_launch, check_tensor, launch_counts, library, require,
+from ...utils import tracing
+
+from . import (check_launch, check_tensor, library, require,
                stream_handle)
 
 _BIG = 1e10
@@ -75,7 +77,7 @@ def three_nn_cuda(src_xyz, src_valid, query_xyz):
                              boxes.data_ptr(), out_d.data_ptr(),
                              out_i.data_ptr(), b, m, n, stream_handle(dev))
     check_launch('three_nn', lib, code)
-    launch_counts['three_nn'] += 1
+    tracing.count('launches.three_nn')
     return out_d, out_i
 
 

@@ -39,6 +39,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..models.layers import Conv2d
+from ..utils import tracing
 
 
 def _accumulate(acc, a, b):
@@ -111,14 +112,17 @@ def _mdcn_forward(x, offset_dy, offset_dx, mask, weights, kernel_size, groups):
     b, h, w, c = x.shape
     g, k = groups, kernel_size * kernel_size
     cg, hw, cout = c // g, h * w, weights.shape[-1]
-    rows, wts = _bilinear_taps(offset_dy, offset_dx, mask, b, h, w, g,
-                               kernel_size, x.dtype)
-    src = _padded_source(x, cg)
+    with tracing.span('slot:dcn.sample'):
+        rows, wts = _bilinear_taps(offset_dy, offset_dx, mask, b, h, w, g,
+                                   kernel_size, x.dtype)
+        src = _padded_source(x, cg)
     w_k = weights.reshape(k, c, cout)
     acc_dt = torch.promote_types(x.dtype, torch.float32)
     acc = torch.zeros((b * hw, cout), dtype=acc_dt, device=x.device)
     for t in range(k):
-        acc = _accumulate(acc, _sample_tap(src, rows, wts, t).view(b * hw, c), w_k[t])
+        with tracing.span('slot:dcn.sample'):
+            samples = _sample_tap(src, rows, wts, t).view(b * hw, c)
+        acc = _accumulate(acc, samples, w_k[t])
     return acc.view(b, h, w, cout)
 
 
@@ -188,14 +192,16 @@ class _ModulatedDeformConvFn(torch.autograd.Function):
     def forward(ctx, x, offset_dy, offset_dx, mask, weights, kernel_size, groups):
         ctx.save_for_backward(x, offset_dy, offset_dx, mask, weights)
         ctx.kernel_size, ctx.groups = kernel_size, groups
-        return _mdcn_forward(x, offset_dy, offset_dx, mask, weights,
-                             kernel_size, groups)
+        with tracing.span('slot:dcn'):
+            return _mdcn_forward(x, offset_dy, offset_dx, mask, weights,
+                                 kernel_size, groups)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, dout):
-        grads = _mdcn_backward(*ctx.saved_tensors, dout, ctx.kernel_size,
-                               ctx.groups)
+        with tracing.span('phase:dcn.backward'):
+            grads = _mdcn_backward(*ctx.saved_tensors, dout, ctx.kernel_size,
+                                   ctx.groups)
         return grads + (None, None)
 
 

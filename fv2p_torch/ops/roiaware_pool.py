@@ -19,6 +19,8 @@ last bits may change from run to run.
 """
 import torch
 
+from ..utils import tracing
+
 _NEG = -1e10
 
 
@@ -44,6 +46,7 @@ def roiaware_pool3d(points, point_feats, point_valid, rois, pool_size, method='m
     flat = ((torch.arange(r, device=rois.device)[:, None] * s + cell[..., 0]) * s
             + cell[..., 1]) * s + cell[..., 2]
     pair = inside.reshape(r * n).nonzero().squeeze(1)              # the inside pairs
+    tracing.count('host_reads.roiaware_pool.inside_pairs')
     flat = flat.reshape(r * n)[pair]
     upd = point_feats.to(torch.float32)[pair % n]                  # (M, C)
     cells = r * s ** 3

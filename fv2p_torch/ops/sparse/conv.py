@@ -30,6 +30,7 @@ import torch
 from torch import nn
 
 from ...models.layers import BN_EPS, update_running_
+from ...utils import tracing
 
 
 def _pad_row(x):
@@ -38,7 +39,8 @@ def _pad_row(x):
 
 def _conv_fwd(features, weight, nbr):
     k, cin, cout = weight.shape
-    gathered = _pad_row(features)[nbr].reshape(nbr.shape[0], k * cin)
+    with tracing.span('slot:sparse_conv.gather'):
+        gathered = _pad_row(features)[nbr].reshape(nbr.shape[0], k * cin)
     return (gathered @ weight.reshape(k * cin, cout)).to(torch.float32)
 
 
@@ -58,18 +60,21 @@ class _SparseConvFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         features, weight, nbr, inv = ctx.saved_tensors
-        if inv is None:
-            inv = nbr.flip(1)
         k, cin, cout = weight.shape
-        dout = dout.to(features.dtype)
         dfeat = dw = None
-        if ctx.needs_input_grad[1]:
-            gathered = _pad_row(features)[nbr].reshape(nbr.shape[0], k * cin)
-            dw = (gathered.t() @ dout).reshape(k, cin, cout).to(weight.dtype)
-        if ctx.needs_input_grad[0]:
-            gd = _pad_row(dout)[inv].reshape(inv.shape[0], k * cout)
-            wt = weight.transpose(1, 2).reshape(k * cout, cin)
-            dfeat = (gd @ wt).to(features.dtype)
+        with tracing.span('phase:sparse_conv.backward'):
+            if inv is None:
+                inv = nbr.flip(1)
+            dout = dout.to(features.dtype)
+            if ctx.needs_input_grad[1]:
+                with tracing.span('phase:sparse_conv.backward.gather'):
+                    gathered = _pad_row(features)[nbr].reshape(nbr.shape[0], k * cin)
+                dw = (gathered.t() @ dout).reshape(k, cin, cout).to(weight.dtype)
+            if ctx.needs_input_grad[0]:
+                with tracing.span('phase:sparse_conv.backward.gather'):
+                    gd = _pad_row(dout)[inv].reshape(inv.shape[0], k * cout)
+                wt = weight.transpose(1, 2).reshape(k * cout, cin)
+                dfeat = (gd @ wt).to(features.dtype)
         return dfeat, dw, None, None
 
 
@@ -98,11 +103,12 @@ class _SparseConvBase(nn.Module):
         self.compute_dtype = compute_dtype
 
     def _apply_conv(self, features, nbr, out_st, inv=None):
-        feats = sparse_conv_apply(features, nbr, self.kernel,
-                                  self.compute_dtype, inv)
-        if self.bias is not None:
-            feats = feats + self.bias
-        feats = feats.masked_fill(~out_st.valid_mask()[:, None], 0.0)
+        with tracing.span('slot:sparse_conv'):
+            feats = sparse_conv_apply(features, nbr, self.kernel,
+                                      self.compute_dtype, inv)
+            if self.bias is not None:
+                feats = feats + self.bias
+            feats = feats.masked_fill(~out_st.valid_mask()[:, None], 0.0)
         return out_st.replace(features=feats)
 
 

@@ -7,7 +7,9 @@ auto-resume from the newest checkpoint, ``--eval_after_train``, and
 card, CUDA activity) of the global steps START .. END - 1 (counted from 0),
 as JAX's runner traces them, written by each rank to
 ``<output_dir>/profile/rank<r>_steps_<START>_<END>.json`` (a Chrome trace:
-open it in Perfetto or ``chrome://tracing``).
+open it in Perfetto or ``chrome://tracing``), with the program's spans as
+ranges, and their aggregates (``utils/tracing``'s snapshot) beside it in
+``rank<r>_steps_<START>_<END>.spans.json``.
 
     python -m fv2p_torch.tools.train --cfg_file tools/cfgs/kitti_models/FV2P/fv2p.yaml
     torchrun --nproc_per_node N -m fv2p_torch.tools.train --dist --cfg_file ...
@@ -43,7 +45,7 @@ from ..datasets import build_dataloader, prefetch
 from ..models.backbones_3d.spconv_backbone import LEVELS
 from ..ops.sparse import host_rulebook
 from ..train_utils.train_state import TrainStep
-from ..utils import common_utils
+from ..utils import common_utils, tracing
 from ..utils.synthetic import batch_to_torch
 from . import test as test_runner
 from .eval_utils import eval_one_epoch
@@ -89,11 +91,15 @@ def parse_profile_steps(text):
 class StepProfiler:
     """A ``torch.profiler`` trace of the global steps [start, end): call
     ``before(step)`` and ``after(step)`` around each step, ``close()`` at the
-    end (it writes a trace cut short by the run's end too)."""
+    end (it writes a trace cut short by the run's end too). The program's
+    spans (``utils/tracing``) record while the profiler does: they are ranges
+    of the trace, and their aggregates are written beside it as
+    ``<trace>.spans.json``."""
 
     def __init__(self, steps, output_dir, device, rank):
         self.start, self.end = steps
         self.path = output_dir / 'profile' / f'rank{rank}_steps_{self.start}_{self.end}.json'
+        self.spans_path = self.path.with_suffix('.spans.json')
         self.device = device
         self.prof = None
         self.written = False
@@ -119,6 +125,7 @@ class StepProfiler:
         self.prof.__exit__(None, None, None)
         self.path.parent.mkdir(parents=True, exist_ok=True)
         self.prof.export_chrome_trace(str(self.path))
+        self.spans_path.write_text(json.dumps(tracing.snapshot(), indent=1))
         self.prof = None
         self.written = True
 

@@ -20,6 +20,7 @@ on every device. Without a process group all of that is the identity."""
 import torch
 
 from .. import parallel
+from ..utils import tracing
 from ..models.detectors.detector3d_template import compute_training_loss
 from .optimization import build_optimizer
 
@@ -59,20 +60,23 @@ class TrainStep:
         return self.optimizer.count
 
     def forward_loss(self, batch_dict):
-        bd = dict(batch_dict)
-        bd['generators'] = step_generators(self.step_count, self.device)
-        out = self.model(bd)
-        loss, terms = compute_training_loss(self.module, out)
+        with tracing.span('phase:forward_loss'):
+            bd = dict(batch_dict)
+            bd['generators'] = step_generators(self.step_count, self.device)
+            out = self.model(bd)
+            loss, terms = compute_training_loss(self.module, out)
         return loss, terms, out
 
     def backward(self, loss):
-        self.optimizer.zero_grad()
-        loss.backward()
+        with tracing.span('phase:backward'):
+            self.optimizer.zero_grad()
+            loss.backward()
 
     def update(self):
-        grad_norm = self.optimizer.clip_grads()
-        self.optimizer.step()
-        parallel.average_running_stats(self.module)
+        with tracing.span('phase:update'):
+            grad_norm = self.optimizer.clip_grads()
+            self.optimizer.step()
+            parallel.average_running_stats(self.module)
         return grad_norm
 
     def step(self, batch_dict):

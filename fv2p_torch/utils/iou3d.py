@@ -13,6 +13,7 @@ import torch
 
 from ..ops.cuda.rotated_iou import bev_corners_ccw as _bev_corners_ccw
 from ..ops.cuda.rotated_iou import iou_bev, iou_bev_upper, overlap_matrix
+from . import tracing
 
 _FIXED_POINT_ROUND = 8
 
@@ -59,6 +60,7 @@ def _greedy_by_fixed_point(overlap, valid):
             prev = keep
             keep = valid & ~((keep.to(torch.float32) @ ov_lower) > 0)
         changed, n_kept = torch.stack([(keep ^ prev).sum(), keep.sum()]).tolist()
+        tracing.count('host_reads.iou3d.fixed_point_round')
         if not changed:
             break
     return keep, n_kept

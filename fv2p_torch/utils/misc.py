@@ -6,6 +6,7 @@ import torch
 import torch.distributed as dist
 
 from .. import parallel
+from . import tracing
 
 
 def all_gather(data):
@@ -27,4 +28,5 @@ def reduce_dict(input_dict, average=True):
     out = parallel.sum_over_ranks(values)
     if average:
         out = out / parallel.world_size()
+    tracing.count('host_reads.misc.reduce_dict')
     return dict(zip(names, out.tolist()))

@@ -262,7 +262,8 @@ def test_profile_steps_trace_with_each_optimizer(train_cfg_file, tmp_path, optim
     """One epoch of two steps with ``--profile_steps 1,2`` and the yaml's
     OPTIMIZER set to ``sgd`` or ``adam``: finite losses, the optimizer's
     own state in the checkpoint, and a Chrome trace of the second step
-    (host operator events; on the CPU no CUDA ones)."""
+    (host operator events and the program's spans; on the CPU no CUDA
+    ones) with the spans' aggregates beside it."""
     out = tmp_path / 'run'
     rec = _train(train_cfg_file, out, 1, '--profile_steps', '1,2',
                  '--set', 'OPTIMIZATION.OPTIMIZER', optimizer)
@@ -278,6 +279,11 @@ def test_profile_steps_trace_with_each_optimizer(train_cfg_file, tmp_path, optim
     names = {e.get('name', '') for e in events}
     assert any(n.startswith('aten::') for n in names)
     assert not any(e.get('cat') == 'kernel' for e in events)
+    # the program's spans: ranges of the trace, their aggregates beside it
+    assert {'phase:forward_loss', 'phase:backward', 'phase:update'} <= names
+    spans = json.loads((out / 'profile' / 'rank0_steps_1_2.spans.json').read_text())
+    assert spans['traced_steps'] >= 1
+    assert spans['spans']['phase:backward']['count'] >= 1
 
 
 @pytest.mark.parametrize('text', ['2,1', '3', 'a,b', '-1,2'])
