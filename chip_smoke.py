@@ -19,7 +19,8 @@ For each model it
 
   * sets the kernels' launch counters to 0 just before one forward, reads
     them just after, and checks each kernel of the path launched (and, for
-    MGAF, B1 exactly once per scan and nothing else);
+    MGAF, B1 exactly once per scan, the sparse conv once per trunk conv,
+    and nothing else);
   * replays every kernel call the forward made, kernel against its plain
     PyTorch version on the same card tensors (B2/B3 indices identical, B3
     squared distances within rtol 1e-6 + atol 1e-6, B1 IoU and areas within
@@ -46,6 +47,13 @@ under the profiler and CUDA's sync debug mode: the device's busy share of one
 pass of each model, each kernel's own device time, the kernels one IoU call
 queues, and the calls in one forward that make the host wait for the card,
 by source line.
+
+The sparse conv kernel (ops/csrc/sparse_conv.cu, the trunk's no-grad
+forward) is timed after the whole forwards, on the 21 convs of one batch
+at fv2p_kitti_infer's shape (batch 4, the 40000-voxel test cap): each call
+held to its plain version, then the kernel, the plain version and the
+parent's gather + torch.matmul beside the bound; its device time under the
+profiler comes last. The record is `sparse_conv` in chip_smoke.json.
 
 Training comes after the timed forwards and before the profiler: FV2P in
 train mode at full width (batch 2, the 16000-voxel train cap with 14000
@@ -383,6 +391,15 @@ KITTI_TRAIN_LR = 0.001          # fv2p.yaml's LR is 0.01
 
 # H100 SXM data sheet (dense): HBM rate, f32 outside the tensor cores, bf16
 HBM_BYTES_S, F32_OPS_S, BF16_OPS_S = 3.35e12, 67e12, 989e12
+# the sparse conv kernel (ops/csrc/sparse_conv.cu): VoxelResBackBone8x's
+# convs a forward, timed on fv2p_kitti_infer's batch (the 40000-voxel test
+# cap with N_FILL voxels a scan, derived level caps, host tables)
+SPARSE_TRUNK_CONVS = 21
+SC_N_CAP = 40000
+# kernel against plain: the same exact products summed in another f32
+# order (at most ~n 2^-24 of the sum of |terms|, n <= 27 * 128), then one
+# bf16 rounding each (one ulp apart at most, <= 2^-7 |v|)
+SC_REL, SC_SUM_REL = 2.0 ** -7, 2.0 ** -12
 # Sutherland-Hodgman over 4 edges x 8 slots + the shoelace sum (clip_area)
 CLIP_OPS_PER_PAIR = 460
 B1_ATOL = 1e-4              # m^2 of area; of max(1, |IoU|) for the IoU
@@ -1264,8 +1281,8 @@ def fv2p_nms_keeps(kernels, model, head_io, out, label):
 
 def mgaf_main_path(kernels, model, batch):
     """MGAF's forward, counted: B1 once per scan (the final NMS of 50
-    candidates) and no other kernel. Returns (output, B1 with its calls,
-    launches)."""
+    candidates), the sparse conv once per trunk conv, and no other kernel.
+    Returns (output, B1 with its calls, launches)."""
     from fv2p_torch.ops import cuda as kcuda
     b1 = next(k for k in kernels if k.name == 'rotated_iou')
     b1 = Kernel(b1.name, b1.module, b1.entries, b1.source, b1.replaces)
@@ -1276,12 +1293,75 @@ def mgaf_main_path(kernels, model, batch):
     launches = dict(kcuda.launch_counts)
     log(f'# mgaf main path launches: {launches}')
     for name, n in launches.items():
-        want = BATCH if name == 'rotated_iou' else 0
+        want = {'rotated_iou': BATCH, 'sparse_conv': SPARSE_TRUNK_CONVS}.get(name, 0)
         if n != want:
             fail(f'mgaf: {name} launched {n} times on the main path, expected {want}')
     if len(b1.calls) != BATCH:
         fail(f'mgaf: {launches["rotated_iou"]} launches, {len(b1.calls)} calls')
     return out, b1, launches
+
+
+def sparse_conv_phase(model, meta):
+    """The sparse conv kernel on the 21 convs of one fv2p_kitti_infer batch
+    (FV2P's trunk in eval): each call held to the plain version (SC_REL of
+    the larger output plus SC_SUM_REL of the sum of |terms|), then the
+    kernel, the plain version and ``_SparseConvFn``'s forward, PyTorch's
+    gather + torch.matmul (``library_ms``), timed with CUDA
+    events beside the bound: the features, weights, tables and f32 output
+    moved once, the products of the (row, tap) pairs that name a real row.
+    Returns (record, the captured calls for the profiler)."""
+    from fv2p_torch.ops.cuda import sparse_conv as sc
+    from fv2p_torch.ops.sparse import conv
+    from fv2p_torch.utils.synthetic import batch_to_torch, synthetic_batch_np
+    batch = batch_to_torch(synthetic_batch_np(meta, BATCH, SC_N_CAP, N_FILL, 512, seed=SEED),
+                           'cuda')
+    calls, real = [], conv.sparse_conv_fwd
+    conv.sparse_conv_fwd = lambda *a: calls.append(a) or real(*a)
+    try:
+        with torch.no_grad():
+            model.backbone_3d(model.vfe(dict(batch)))
+    finally:
+        conv.sparse_conv_fwd = real
+    sync()
+    if len(calls) != SPARSE_TRUNK_CONVS:
+        fail(f'sparse_conv: {len(calls)} calls in the trunk, expected {SPARSE_TRUNK_CONVS}')
+
+    per_call, worst, equal = [], 0.0, 0
+    bytes_, ops, ops_cap = 0, 0, 0
+    for f, w, nbr, bias, valid in calls:
+        got, ref = sc.sparse_conv_fwd_cuda(f, w, nbr), sc.sparse_conv_fwd_plain(f, w, nbr)
+        s = sc.sparse_conv_fwd_plain(f.abs().float(), w.abs().float(), nbr)
+        excess = float(((got - ref).abs() - SC_REL * torch.maximum(got.abs(), ref.abs())
+                        - SC_SUM_REL * s).max())
+        if excess > 0:
+            fail(f'sparse_conv {tuple(w.shape)}: kernel and plain differ past the tolerance '
+                 f'by {excess}')
+        worst = max(worst, float((got - ref).abs().max()))
+        equal += int(torch.equal(got, ref))
+        k, cin, cout = w.shape
+        pairs = int((nbr != f.shape[0]).sum())
+        b = (f.numel() * 2 + w.numel() * 2 + nbr.numel() * 8 + nbr.shape[0] * (cout * 4 + 1)
+             + cout * 4)
+        bytes_, ops, ops_cap = bytes_ + b, ops + 2 * pairs * cin * cout, \
+            ops_cap + 2 * nbr.numel() * cin * cout
+        per_call.append({'shape': [k, cin, cout], 'n_in': f.shape[0], 'n_out': nbr.shape[0],
+                         'pair_share': pairs / nbr.numel(),
+                         'ms': time_events(lambda: sc.sparse_conv_fwd_cuda(f, w, nbr, bias, valid),
+                                           reps=10)})
+    rec = {'launches': SPARSE_TRUNK_CONVS, 'max_abs_err': worst, 'bitwise_equal_calls': equal,
+           'per_call': per_call,
+           'ms': time_events(lambda: [sc.sparse_conv_fwd_cuda(*a) for a in calls], reps=10),
+           'plain_ms': time_events(lambda: [sc.sparse_conv_fwd_plain(*a) for a in calls], reps=3),
+           'library_ms': time_events(lambda: [conv._conv_fwd(*a[:3]) for a in calls], reps=3),
+           'bytes': bytes_, 'ops': ops, 'ops_at_capacity': ops_cap,
+           'bound_ms': max(bytes_ / HBM_BYTES_S, ops / BF16_OPS_S) * 1e3,
+           'bound_by': 'bytes' if bytes_ / HBM_BYTES_S >= ops / BF16_OPS_S else 'operations'}
+    log(f'# sparse_conv: {rec["ms"]:.3f} ms kernel for the trunk\'s {len(calls)} convs, '
+        f'{rec["plain_ms"]:.3f} ms plain, {rec["library_ms"]:.3f} ms gather + torch.matmul, '
+        f'bound {rec["bound_ms"]:.4f} ms ({rec["bound_by"]}: {bytes_ / 1e9:.3f} GB, '
+        f'{ops / 1e9:.1f} GFLOP of {ops_cap / 1e9:.1f} at capacity); largest |kernel - plain| '
+        f'{worst}, {equal} of {len(calls)} calls equal to the bit')
+    return rec, calls
 
 
 def mgaf_nms_keeps(kernels, model, out):
@@ -2770,7 +2850,7 @@ def kitti_eval_device_phase(kernels, rows, cfg, model, host_rec, host_first, hos
         fail('kitti_eval_device: the loader shipped rulebooks')
     ret_a, launches, b1_calls = counted_eval(
         kernels, rows, cfg, model, loader, test_set, out_dir, 'kitti_eval_device',
-        ('rotated_iou', 'fps', 'three_nn', 'sa_group'), len(loader),
+        ('rotated_iou', 'fps', 'three_nn', 'sa_group', 'sparse_conv'), len(loader),
         library=library_three_nn_chunked)
     ret, _ = eval_utils.eval_one_epoch(cfg, model, loader, test_set, out_dir, logger,
                                        KITTI_BATCH)
@@ -5095,6 +5175,8 @@ def main():
     mrec['dcn']['share_of_forward'] = mrec['dcn']['ms'] / mrec['forward_ms']['median']
 
     lap('kernel_and_forward_times')
+    screc, sc_calls = sparse_conv_phase(model, meta)
+    lap('sparse_conv')
     # 9b. training: fv2p.yaml in train mode at batch 2 on 24000-point scans,
     # bf16 compute and f32 parameters; the f32 step against the plain
     # versions, then the timed steps (each counted: B1, B2, B3 launch, B4
@@ -5136,11 +5218,11 @@ def main():
     krec = {}
     (krec['eval'], kmodel, kfirst, kfirst_np, ktest_set, kannos,
      kret) = kitti_eval_phase(kernels, rows, cfg, 'kitti_eval',
-                              ('rotated_iou', 'fps', 'three_nn', 'sa_group'))
+                              ('rotated_iou', 'fps', 'three_nn', 'sa_group', 'sparse_conv'))
     krec['eval']['f32_kernel_vs_plain'] = kitti_eval_f32(kernels, cfg, ktest_set, kfirst,
                                                          kfirst_np)
     krec['mgaf_eval'], kmgaf, kmfirst, *_ = kitti_eval_phase(
-        kernels, rows, mcfg, 'mgaf_kitti_eval', ('rotated_iou',), calibrate=True)
+        kernels, rows, mcfg, 'mgaf_kitti_eval', ('rotated_iou', 'sparse_conv'), calibrate=True)
     krec['evaluator'] = kitti_evaluator_phase(ktest_set, kannos, kret)
     krec['train'] = kitti_train_phase(kernels, rows, cfg)
 
@@ -5268,6 +5350,9 @@ def main():
         k.calls.clear()
     mrec['b1']['device_ms'] = device_ms(
         lambda: [mgaf_b1.launch(a) for a in mgaf_b1.calls], reps=5)
+    from fv2p_torch.ops.cuda.sparse_conv import sparse_conv_fwd_cuda
+    screc['device_ms'] = device_ms(lambda: [sparse_conv_fwd_cuda(*a) for a in sc_calls])
+    del sc_calls
     # B1 at the cls-score models' call sites (SECOND, PointPillar, the
     # multihead models, the nuScenes test runner, PV-RCNN and Voxel R-CNN)
     # and B2 at PV-RCNN's
@@ -5290,7 +5375,7 @@ def main():
                   valid_detections=n_valid, mgaf=mrec, train=trec, mgaf_train=mtrec,
                   kitti=krec, device_rulebooks=drec, zoo=zrec, nuscenes=nrec, grid=grec,
                   waymo=wrec, pointrcnn=prec, parta2=parec, ddp=ddp_rec, phase_s=phase_s,
-                  second_atss=atss_rec, demo=demo_rec,
+                  second_atss=atss_rec, demo=demo_rec, sparse_conv=screc,
                   wall_s=time.perf_counter() - T_START)
     log(f'# seconds by phase: { {k: round(v, 1) for k, v in phase_s.items()} }')
     log(f'# chip_smoke.py wall time {record["wall_s"]:.1f} s')

@@ -23,6 +23,12 @@ from the host rulebook (``down_inv_*``) or the device builder. The inverse
 conv of a strided layer (UNetV2's decoder) runs that layer's two tables
 swapped. ``sparse_maxpool`` and ``sparse_group`` gather through a table
 without a matmul.
+
+A forward that autograd does not record, in bf16 on the card (all of
+inference), goes to the gather-MMA kernel ``ops/cuda/sparse_conv.py``
+instead, which keeps the gathered rows in shared memory and applies the
+bias and the row mask in its epilogue; every other call (training, f32,
+the CPU) takes ``_SparseConvFn``.
 """
 import math
 
@@ -31,6 +37,7 @@ from torch import nn
 
 from ...models.layers import BN_EPS, update_running_
 from ...utils import tracing
+from ..cuda.sparse_conv import sparse_conv_fwd
 
 
 def _pad_row(x):
@@ -78,16 +85,27 @@ class _SparseConvFn(torch.autograd.Function):
         return dfeat, dw, None, None
 
 
+def _operands(features, weight, compute_dtype):
+    """Both operands in the compute dtype (the features' own if None)."""
+    if compute_dtype is not None:
+        return features.to(compute_dtype), weight.to(compute_dtype)
+    return features, weight.to(features.dtype)
+
+
+def _kernel_takes(features, weight):
+    """Whether a conv on these operands goes to the gather-MMA kernel: bf16
+    on the card, and autograd not recording it."""
+    return (features.is_cuda and features.dtype == torch.bfloat16
+            and not (torch.is_grad_enabled()
+                     and (features.requires_grad or weight.requires_grad)))
+
+
 def sparse_conv_apply(features, nbr, weight, compute_dtype=None, inv=None):
     """features (N_in_cap, Cin); nbr (N_out, K) int64 in [0, N_in_cap];
     weight (K, Cin, Cout) -> (N_out, Cout) float32. ``inv`` (N_in_cap, K) is
     the inverse table of a strided layer; None means a submanifold layer
     (N_out == N_in_cap, the taps mirrored)."""
-    if compute_dtype is not None:
-        features = features.to(compute_dtype)
-        weight = weight.to(compute_dtype)
-    else:
-        weight = weight.to(features.dtype)
+    features, weight = _operands(features, weight, compute_dtype)
     return _SparseConvFn.apply(features, weight, nbr, inv)
 
 
@@ -104,11 +122,16 @@ class _SparseConvBase(nn.Module):
 
     def _apply_conv(self, features, nbr, out_st, inv=None):
         with tracing.span('slot:sparse_conv'):
-            feats = sparse_conv_apply(features, nbr, self.kernel,
-                                      self.compute_dtype, inv)
-            if self.bias is not None:
-                feats = feats + self.bias
-            feats = feats.masked_fill(~out_st.valid_mask()[:, None], 0.0)
+            features, weight = _operands(features, self.kernel, self.compute_dtype)
+            mask = out_st.valid_mask()
+            if _kernel_takes(features, weight):
+                bias = None if self.bias is None else self.bias.float()
+                feats = sparse_conv_fwd(features, weight, nbr, bias, mask)
+            else:
+                feats = _SparseConvFn.apply(features, weight, nbr, inv)
+                if self.bias is not None:
+                    feats = feats + self.bias
+                feats = feats.masked_fill(~mask[:, None], 0.0)
         return out_st.replace(features=feats)
 
 
