@@ -395,6 +395,9 @@ HBM_BYTES_S, F32_OPS_S, BF16_OPS_S = 3.35e12, 67e12, 989e12
 # convs a forward, timed on fv2p_kitti_infer's batch (the 40000-voxel test
 # cap with N_FILL voxels a scan, derived level caps, host tables)
 SPARSE_TRUNK_CONVS = 21
+# the DCN kernel (ops/csrc/dcn.cu): MGAF-3DSSD's deformable convs a forward
+# (three in the BEV backbone's deblocks, one in the head)
+MGAF_DCN_CALLS = 4
 SC_N_CAP = 40000
 # kernel against plain: the same exact products summed in another f32
 # order (at most ~n 2^-24 of the sum of |terms|, n <= 27 * 128), then one
@@ -1281,7 +1284,8 @@ def fv2p_nms_keeps(kernels, model, head_io, out, label):
 
 def mgaf_main_path(kernels, model, batch):
     """MGAF's forward, counted: B1 once per scan (the final NMS of 50
-    candidates), the sparse conv once per trunk conv, and no other kernel.
+    candidates), the sparse conv once per trunk conv, the DCN once per
+    deformable conv, and no other kernel.
     Returns (output, B1 with its calls, launches)."""
     from fv2p_torch.ops import cuda as kcuda
     b1 = next(k for k in kernels if k.name == 'rotated_iou')
@@ -1293,7 +1297,8 @@ def mgaf_main_path(kernels, model, batch):
     launches = dict(kcuda.launch_counts)
     log(f'# mgaf main path launches: {launches}')
     for name, n in launches.items():
-        want = {'rotated_iou': BATCH, 'sparse_conv': SPARSE_TRUNK_CONVS}.get(name, 0)
+        want = {'rotated_iou': BATCH, 'sparse_conv': SPARSE_TRUNK_CONVS,
+                'dcn': MGAF_DCN_CALLS}.get(name, 0)
         if n != want:
             fail(f'mgaf: {name} launched {n} times on the main path, expected {want}')
     if len(b1.calls) != BATCH:
@@ -1407,22 +1412,52 @@ def f32_forward(kernels, cfg, meta, batch, post, keys, label, compare_keys,
 def dcn_times(model, batch):
     """Every modulated_deform_conv call of one MGAF forward, replayed on the
     same card tensors (CUDA events), beside the least time the card could
-    take: bytes in and out over the memory rate, MACs x 2 over the peak."""
+    take: bytes in and out over the memory rate, MACs x 2 over the peak.
+    An eval forward sends each call to the sample-and-MMA kernel
+    (ops/csrc/dcn.cu): its launches are counted (one a call), and the
+    kernel alone (on the operands as the wrapper makes them contiguous) and
+    the plain version (the tensor code's arithmetic) are timed on the same
+    calls, each kernel call held to the plain version within the tolerance
+    of tests/test_torch_dcn_kernel.py."""
+    from fv2p_torch.ops import cuda as kcuda
     from fv2p_torch.ops import dcn
+    from fv2p_torch.ops.cuda import dcn as cdcn
     calls, orig = [], dcn.modulated_deform_conv
 
     def capture(*args):
         calls.append(args)
         return orig(*args)
 
+    kcuda.reset_launch_counts()
     dcn.modulated_deform_conv = capture
     try:
         forward(model, batch)
     finally:
         dcn.modulated_deform_conv = orig
     sync()
+    launches = kcuda.launch_counts['dcn']
+    if launches != len(calls) or len(calls) != MGAF_DCN_CALLS:
+        fail(f'mgaf DCN: {launches} kernel launches for {len(calls)} calls in an eval '
+             f'forward, expected {MGAF_DCN_CALLS}')
     per_call = [time_events(lambda a=a: orig(*a), reps=5) for a in calls]
     total = time_events(lambda: [orig(*a) for a in calls], reps=5)
+    ops = [(tuple(t.contiguous() for t in a[:5]), a[6]) for a in calls]
+    kernel_ms = time_events(lambda: [cdcn.mdcn_fwd_cuda(*o, g) for o, g in ops], reps=5)
+    kernel_device_ms = device_ms(lambda: [cdcn.mdcn_fwd_cuda(*o, g) for o, g in ops])
+    plain_ms = time_events(lambda: [cdcn.mdcn_fwd_plain(*o, g) for o, g in ops], reps=3)
+    errs, equal = [], 0
+    for (x, dy, dx, mask, w), g in ops:
+        got = cdcn.mdcn_fwd_cuda(x, dy, dx, mask, w, g)
+        ref = cdcn.mdcn_fwd_plain(x, dy, dx, mask, w, g)
+        s = cdcn.mdcn_fwd_plain(x.abs(), dy, dx, mask, w.abs(), g)
+        tol = (2.0 ** -23 * w.shape[0] * w.shape[1] * s
+               + 2.0 ** -8 * float(x.abs().max()) * float(w.abs().max()))
+        err = (got - ref).abs()
+        if bool((err > tol).any()):
+            fail(f'mgaf DCN {tuple(w.shape)}: kernel and plain differ past the tolerance '
+                 f'(max {float(err.max())})')
+        errs.append(float(err.max()))
+        equal += bool(torch.equal(got, ref))
     peak_gib = []                    # device memory a call takes beyond its inputs
     for a in calls:
         sync()
@@ -1434,6 +1469,9 @@ def dcn_times(model, batch):
     bounds = [bound_dcn(a) for a in calls]
     b_bytes, b_ops, macs = (sum(x) for x in zip(*bounds))
     rec = {'calls': len(calls), 'ms': total, 'per_call_ms': per_call,
+           'launches': launches, 'kernel_ms': kernel_ms, 'kernel_device_ms': kernel_device_ms,
+           'plain_ms': plain_ms,
+           'max_abs_err': errs, 'bit_equal_calls': equal,
            'per_call_peak_gib': peak_gib,
            'shapes': [[list(a[0].shape), list(a[4].shape), a[6]] for a in calls],
            'macs': macs, 'bound_ms': max(b_bytes, b_ops) * 1e3,
@@ -1444,6 +1482,10 @@ def dcn_times(model, batch):
         f'({rec["bound_by"]}; bytes {rec["bound_bytes_ms"]:.4f}, MACs x 2 '
         f'{rec["bound_ops_ms"]:.4f}); {macs / 1e9:.1f} GMAC; device memory '
         f'beyond the inputs, per call (GiB): {[round(x, 3) for x in peak_gib]}')
+    log(f'# mgaf DCN kernel: {launches} launches a forward, {kernel_ms:.3f} ms for the '
+        f'calls alone ({kernel_device_ms:.3f} ms device), plain version {plain_ms:.3f} ms; '
+        f'{equal} of {len(ops)} calls equal to the plain version to the bit, max abs error '
+        f'{errs}')
     return rec
 
 
@@ -1815,8 +1857,8 @@ def dcn_train_times(step, batch):
     per_call = []
     for a in calls:
         x, _, _, _, w, _, g = a
-        with torch.no_grad():
-            fwd = time_events(lambda: orig(*a), reps=5)
+        with torch.no_grad():   # the train step's forward: the autograd path's, not the kernel
+            fwd = time_events(lambda: dcn._ModulatedDeformConvFn.apply(*a), reps=5)
         fwd_bwd, leaves = fwd_bwd_of(a)
         both = time_events(fwd_bwd, reps=3)
         for t in leaves:
@@ -1899,6 +1941,9 @@ def mgaf_train_phase(kernels, cfg, meta, rows):
     train_kernel_rows(calls, rec['launches'], rows, prefix='mgaf_train')
     del calls
     rec['dcn'] = dcn_train_times(step, batch)
+    # a train step keeps the autograd path: timed_train_steps failed any step
+    # that launched the DCN kernel (it launches only B1)
+    rec['dcn']['kernel_launches_per_step'] = [n['dcn'] for n in rec['launches_per_step']]
     # under the profiler and the sync debug mode, after every timed pass
     rec['host_syncs'], rec['host_sync_sites'] = host_syncs(lambda: step.step(batch))
     rec['profile'] = profiled(lambda: step.step(batch))
@@ -2767,8 +2812,8 @@ def demo_phase(kernels, rows, ckpt):
     run = demo.main(argv)
     sync()
     launches = dict(kcuda.launch_counts)
-    if min(launches.values()) == 0:
-        fail(f'{label}: a kernel was not launched in the demo\'s forward: {launches}')
+    if min(n for k, n in launches.items() if k != 'dcn') == 0 or launches['dcn']:
+        fail(f'{label}: FV2P\'s demo forward launches every kernel but the DCN\'s: {launches}')
     dets = run['detections']
     rec = {'argv': [str(a) for a in argv], 'launches': launches, 'setup_s': run['setup_s'],
            'first_forward_ms': run['forward_ms'], 'detections': int(dets['pred_scores'].shape[0]),
@@ -5222,7 +5267,8 @@ def main():
     krec['eval']['f32_kernel_vs_plain'] = kitti_eval_f32(kernels, cfg, ktest_set, kfirst,
                                                          kfirst_np)
     krec['mgaf_eval'], kmgaf, kmfirst, *_ = kitti_eval_phase(
-        kernels, rows, mcfg, 'mgaf_kitti_eval', ('rotated_iou', 'sparse_conv'), calibrate=True)
+        kernels, rows, mcfg, 'mgaf_kitti_eval', ('rotated_iou', 'sparse_conv', 'dcn'),
+        calibrate=True)
     krec['evaluator'] = kitti_evaluator_phase(ktest_set, kannos, kret)
     krec['train'] = kitti_train_phase(kernels, rows, cfg)
 

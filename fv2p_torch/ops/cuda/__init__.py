@@ -24,7 +24,7 @@ import torch
 
 from ...utils import tracing
 
-KERNELS = ('rotated_iou', 'fps', 'three_nn', 'sa_group', 'sparse_conv')
+KERNELS = ('rotated_iou', 'fps', 'three_nn', 'sa_group', 'sparse_conv', 'dcn')
 
 CSRC = Path(__file__).resolve().parent.parent / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parents[3] / 'build' / 'kernels'
@@ -49,6 +49,7 @@ SIGNATURES = {
                                    _I, _I, _I, _F, _F, _I, _I, _P)},
     'sparse_conv': {'fv2p_sparse_conv_fwd': (_P, _P, _P, _P, _P, _P,
                                              _I, _I, _I, _I, _I, _P)},
+    'dcn': {'fv2p_dcn_fwd': (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)},
 }
 
 _libs = {}

@@ -22,6 +22,13 @@ tricks; their semantics are kept:
   to the compute type before the blend; the products accumulate in f32 and
   the output is f32.
 
+A no-grad bf16 call on the card, within the kernel's limits (a 3 x 3
+kernel, C / G a multiple of 8, Cout 128 or 256), goes to the
+sample-and-MMA kernel ``ops/csrc/dcn.cu`` instead (``_kernel_takes``): the
+same arithmetic, the corners blended in shared memory and never written to
+device memory. Every other call (training, f32, f64, the CPU) takes
+``_ModulatedDeformConvFn``.
+
 Memory: besides every tap's corner indices and weights (4 x K x B x HW x G
 of each), one tap's gathered corners and the (B*HW, Cout) f32 accumulator
 are live at a time, never the whole (B, HW, K, C) sample matrix.
@@ -40,6 +47,7 @@ from torch import nn
 
 from ..models.layers import Conv2d
 from ..utils import tracing
+from .cuda.dcn import mdcn_fwd, refusal
 
 
 def _accumulate(acc, a, b):
@@ -205,6 +213,17 @@ class _ModulatedDeformConvFn(torch.autograd.Function):
         return grads + (None, None)
 
 
+def _kernel_takes(x, offset_dy, offset_dx, mask, weights, kernel_size, groups):
+    """Whether a call goes to the sample-and-MMA kernel: bf16 on the card,
+    autograd not recording it, and operands within the kernel's limits."""
+    return (x.is_cuda and x.dtype == torch.bfloat16
+            and not (torch.is_grad_enabled()
+                     and any(t.requires_grad
+                             for t in (x, offset_dy, offset_dx, mask, weights)))
+            and kernel_size * kernel_size == weights.shape[0]
+            and refusal(x, offset_dy, offset_dx, mask, weights, groups) is None)
+
+
 def modulated_deform_conv(x, offset_dy, offset_dx, mask, weights,
                           kernel_size=3, deformable_groups=1):
     """Args:
@@ -213,8 +232,13 @@ def modulated_deform_conv(x, offset_dy, offset_dx, mask, weights,
         mask: (B, H, W, G*K) modulation in [0, 1] (already sigmoided).
         weights: (K, C, Cout), in the compute type.
     Returns: (B, H, W, Cout) float32 (float64 for f64 inputs).
-    Differentiable in all five tensors (``_ModulatedDeformConvFn``).
+    Differentiable in all five tensors (``_ModulatedDeformConvFn``); a call
+    that autograd does not record may take the kernel (``_kernel_takes``).
     """
+    if _kernel_takes(x, offset_dy, offset_dx, mask, weights, kernel_size,
+                     deformable_groups):
+        with tracing.span('slot:dcn'):
+            return mdcn_fwd(x, offset_dy, offset_dx, mask, weights, deformable_groups)
     return _ModulatedDeformConvFn.apply(x, offset_dy, offset_dx, mask, weights,
                                         kernel_size, deformable_groups)
 
